@@ -1,0 +1,78 @@
+"""The committed smoke fixture, univer_ocr_tpu_torch/fixtures/
+smoke_pages.npz: 4 synthetic pages (496x736 uint8, rendered by the JAX
+package's generator from a fixed seed, as bench.py renders its pages) and
+the text the JAX host cascade gives for each on the CPU.  chip_smoke.py
+drives the port on the card with these pages, which the card machine
+cannot render (it has no Pillow and no fonts).
+
+Regenerate with `JAX_PLATFORMS=cpu python tests/test_torch_fixture.py`."""
+
+import json
+import random
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+FIXTURE = ROOT / 'univer_ocr_tpu_torch' / 'fixtures' / 'smoke_pages.npz'
+PAGE_SHAPE = (1, 496, 736, 1)
+SEED = 2024
+N_PAGES = 4
+
+
+def load_fixture():
+    with np.load(FIXTURE) as f:
+        return f['pages'], json.loads(str(f['texts']))
+
+
+def test_fixture_is_small_and_well_formed():
+    assert FIXTURE.stat().st_size <= 1 << 20
+    pages, texts = load_fixture()
+    assert pages.shape == (N_PAGES,) + PAGE_SHAPE[1:3]
+    assert pages.dtype == np.uint8
+    assert len(texts) == N_PAGES
+    assert all(isinstance(line, str)
+               for page in texts for para in page for line in para)
+    assert sum(len(para) for page in texts for para in page) > 0
+
+
+def test_port_reproduces_the_fixture_text_on_cpu():
+    from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
+    pages, texts = load_fixture()
+    with OCRPipeline(PAGE_SHAPE, chunk=N_PAGES, workers=2, collapse_runs=4,
+                     precision='highest', device='cpu') as pipeline:
+        got = pipeline.ocr_pages([p[None, :, :, None] for p in pages])
+    assert got == texts
+
+
+def generate():
+    """Render the pages and record the JAX host cascade's text."""
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    sys.path.insert(0, str(ROOT))
+    from univer_ocr_tpu.models.pipeline import OCRPipeline
+    from univer_ocr_tpu.models.train_data_generator import generate_picture
+    from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
+
+    random.seed(SEED)
+    np.random.seed(SEED)
+    pages = np.stack([
+        np.asarray(generate_picture(720, 480, False)['image'].convert('L'))
+        for _ in range(N_PAGES)])
+    assert pages.shape == (N_PAGES,) + PAGE_SHAPE[1:3], pages.shape
+    with open(DEFAULT_CHECKPOINT) as fp:
+        weights = json.load(fp)
+    pipeline = OCRPipeline(PAGE_SHAPE, weights=weights, chunk=N_PAGES,
+                           workers=2, device_cascade=False,
+                           precision='highest', collapse_runs=4)
+    texts = pipeline.ocr_pages([p[None, :, :, None] for p in pages])
+    FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(FIXTURE, pages=pages, texts=np.array(json.dumps(
+        texts, ensure_ascii=False)))
+    print(f'{FIXTURE}: {FIXTURE.stat().st_size} bytes, '
+          f'{sum(len(p) for p in texts)} paragraphs')
+
+
+if __name__ == '__main__':
+    generate()

@@ -1,0 +1,122 @@
+"""Masked fixed-shape forwards of the cascade (univer_ocr_tpu/models/
+fastpath.py).
+
+Crops are padded to a bucket shape; zeroing everything outside the valid
+region after every conv keeps the valid region of the padded computation
+equal to the unpadded one (conv padding is 0 and LeakyReLU(0) = 0
+throughout this model zoo).  Valid extents are ints or (N,) tensors.
+Parameters are the checkpoint dict `{name: {'w', 'b'}}` (weights.py);
+activations are NHWC.
+"""
+
+import torch
+
+from .. import ops
+from ..ops.kernels import (fused_char_head, fused_char_head_reference,
+                           fused_monochrome, fused_monochrome_reference)
+
+LEAKY_ALPHA = 0.01
+
+
+def _per_sample(v, device):
+    return torch.as_tensor(v, device=device).reshape(-1, 1, 1, 1)
+
+
+def _mask_hw(x, h_valid, w_valid):
+    """Zero NHWC entries with row >= h_valid or col >= w_valid."""
+    rows = torch.arange(x.shape[1], device=x.device).reshape(1, -1, 1, 1)
+    cols = torch.arange(x.shape[2], device=x.device).reshape(1, 1, -1, 1)
+    keep = ((rows < _per_sample(h_valid, x.device))
+            & (cols < _per_sample(w_valid, x.device)))
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def _conv(params, key, x, stride=1, padding=2, precision=None):
+    p = params[key]
+    return ops.conv2d(x, p['w'], p['b'], stride=(stride, stride),
+                      padding=(padding, padding), precision=precision)
+
+
+def _leaky(x):
+    return ops.leaky_relu(x, LEAKY_ALPHA)
+
+
+def line_forward_masked(params, x, h_valid, w_valid, prefix='Line',
+                        precision=None):
+    """Masked Paragraph/Line FCN forward: x is a bucket-padded (B, H, W, C)
+    crop whose true extent is (h_valid, w_valid), multiples of 4.  Returns
+    the full padded output; callers trim to (h_valid, w_valid)."""
+    x = _mask_hw(x, h_valid, w_valid)
+
+    x = _leaky(_conv(params, f'{prefix}/down_1/conv_1', x, stride=2,
+                     precision=precision))
+    h2, w2 = h_valid // 2, w_valid // 2
+    x = _mask_hw(x, h2, w2)
+
+    x = _leaky(_conv(params, f'{prefix}/down_2/conv_1', x, stride=2,
+                     precision=precision))
+    h4, w4 = h_valid // 4, w_valid // 4
+    x = _mask_hw(x, h4, w4)
+
+    x = ops.upsample2d(x, 2)
+    x = _leaky(_conv(params, f'{prefix}/up_2/conv_block/conv_1', x,
+                     precision=precision))
+    x = _mask_hw(x, h2, w2)
+
+    x = ops.upsample2d(x, 2)
+    x = _leaky(_conv(params, f'{prefix}/up_1/conv_block/conv_1', x,
+                     precision=precision))
+    x = _mask_hw(x, h_valid, w_valid)
+
+    x = _conv(params, f'{prefix}/end/conv_1', x, precision=precision)
+    return ops.sigmoid(x)
+
+
+def char_forward_masked(params, x, w_valid, precision=None, head='xla'):
+    """Masked Char forward: x is a (N, 32, W, 1) batch of bucket-padded
+    lines, `w_valid` a (N,) vector of true widths.  Returns (N, W, 162)
+    logits; row (n, j) is valid for j < w_valid[n].
+
+    conv [64, 64, 64] k(5,3) p(0,1) s(2,1) -> width-8 unfold -> flatten ->
+    dense [1024, 128, 162].  `head='xla'` runs the unfold and the dense
+    chain as plain ops (the JAX package's name for that path), the fused
+    head's plain version; `head='kernel'` runs them as the fused CUDA
+    kernel (ops/kernels/char_head.py), which always computes in full
+    float32.
+    """
+    if head not in ('xla', 'kernel'):
+        raise ValueError(f"head must be 'xla' or 'kernel': {head!r}")
+    wv = _per_sample(w_valid, x.device)
+
+    def mask_w(t):
+        cols = torch.arange(t.shape[2], device=t.device).reshape(1, 1, -1, 1)
+        return torch.where(cols < wv, t, torch.zeros_like(t))
+
+    x = mask_w(x)
+    for i in (1, 2, 3):
+        p = params[f'Char/conv_block/conv_{i}']
+        x = ops.conv2d(x, p['w'], p['b'], stride=(2, 1), padding=(0, 1),
+                       precision=precision)
+        x = mask_w(_leaky(x))
+
+    dense_w = [params[f'Char/dense_block/dense_{i}']['w'] for i in (1, 2, 3)]
+    x = x[:, 0, :, :].contiguous()
+    if head == 'kernel':
+        return fused_char_head(x, *dense_w)
+    return fused_char_head_reference(x, *dense_w, precision=precision)
+
+
+def monochrome_forward(params, x, prefix='Monochrome', precision=None):
+    """Monochrome conv block [16, 1] k3 p1 with a sigmoid end, as plain
+    ops (the fused kernel's plain version).  Fixed page shape: no
+    masking."""
+    c1, c2 = params[f'{prefix}/conv_1'], params[f'{prefix}/conv_2']
+    return fused_monochrome_reference(x, c1['w'], c1['b'], c2['w'], c2['b'],
+                                      precision=precision)
+
+
+def monochrome_fused(params, x, prefix='Monochrome'):
+    """The Monochrome block through the fused kernel (ops/kernels/
+    fused_monochrome.py), always in full float32."""
+    c1, c2 = params[f'{prefix}/conv_1'], params[f'{prefix}/conv_2']
+    return fused_monochrome(x, c1['w'], c1['b'], c2['w'], c2['b'])

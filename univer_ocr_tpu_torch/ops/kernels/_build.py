@@ -1,0 +1,101 @@
+"""Build and bind the port's CUDA kernels.
+
+At first use, ONE `nvcc` command compiles every `univer_ocr_tpu_torch/
+csrc/*.cu` into a shared library with a plain C interface, and `ctypes`
+loads it.  No PyTorch headers and no pybind11 are involved, so the build
+takes seconds.  The library lands in `build/kernels/` at the root of the
+checkout (git-ignored), named by a hash of the sources and flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is.
+
+Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` raises when that is not 0.
+"""
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / 'csrc'
+BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+#: launches of each kernel by its wrapper, keyed by kernel name; a wrapper
+#: adds one where it launches its kernel and nowhere else
+LAUNCHES = collections.Counter()
+
+
+def _nvcc():
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels are built with '
+                           'the CUDA toolkit on the machine with the card')
+    return path
+
+
+def sources():
+    return sorted(CSRC_DIR.glob('*.cu'))
+
+
+def library_path():
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f'libuocr_kernels_{digest.hexdigest()[:16]}.so'
+
+
+def build():
+    """Compile the kernels unless a library of these exact sources exists.
+    Returns {'path', 'seconds', 'log'}; `log` holds nvcc's -Xptxas -v
+    report (registers, shared memory and spills of each kernel)."""
+    path = library_path()
+    if path.exists():
+        return {'path': path, 'seconds': 0.0, 'log': 'cached'}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}) after '
+                           f'{seconds:.1f} s: {" ".join(cmd)}\n{log}')
+    os.replace(tmp, path)
+    print(f'kernels: built {path.name} in {seconds:.1f} s with: '
+          f'{" ".join(cmd)}\n{log}', flush=True)
+    return {'path': path, 'seconds': seconds, 'log': log}
+
+
+@functools.lru_cache(maxsize=1)
+def library():
+    lib = ctypes.CDLL(str(build()['path']))
+    lib.uocr_error_string.argtypes = [ctypes.c_int]
+    lib.uocr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(name, argtypes):
+    """The C entry `name` of the library, with its argument types set from
+    the string `argtypes`: 'p' for a pointer or a stream (c_void_p), 'i'
+    for an int (c_int)."""
+    fn = getattr(library(), name)
+    fn.argtypes = [ctypes.c_void_p if t == 'p' else ctypes.c_int
+                   for t in argtypes]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(code, kernel):
+    if code != 0:
+        msg = library().uocr_error_string(code).decode()
+        raise RuntimeError(f'{kernel}: CUDA error {code} at launch: {msg}')
