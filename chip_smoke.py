@@ -10,13 +10,22 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
   build    one nvcc command builds every univer_ocr_tpu_torch/csrc/*.cu
   kernels  each CUDA kernel against its plain PyTorch version, on seeded
            inputs and the committed checkpoint's weights, at the shapes
-           the main path gives it and at a ragged shape
+           the main path gives it, at a ragged shape and (Char head) at
+           far fewer tiles than SMs
   path     the host-cascade OCRPipeline on the committed fixture's pages
            (one chunk of 8), its text held against the JAX host cascade's
            text stored in the fixture; both kernels must have launched
   times    CUDA-event times of each kernel and its plain version at the
-           path's shapes (the Char head at every width bucket), and the
-           path's pages/s (printed, not gated)
+           path's shapes (the Char head at every width bucket) beside
+           their bounds, and the path's pages/s (printed, not gated)
+
+Bounds: the larger of the bytes (each input read once, each output
+written once) over the HBM rate and the work over the peak rate of the
+units the path's precision allows.  The Char head runs in 3xTF32 on the
+tensor cores, so its `bound_ms` is three TF32 products at 495 TFLOP/s;
+`bound_ffma_ms` beside it is the same work in FP32 FFMA at 67 TFLOP/s
+(the bound of the FFMA kernel it replaced).  The Monochrome block has no
+tensor-core shape: both its bounds are FFMA.
 
 The Char head's times in the last JSON lines are means per launch over the
 width mix the path launched it with (`WIDTH_LAUNCHES`), with each width's
@@ -49,10 +58,15 @@ TEXT_SIMILARITY = 0.99
 MONO_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_pallas.py bars
 CHAR_TOL = dict(rtol=2e-4, atol=1e-4)
 ARGMAX_AGREEMENT = 0.999
-#: H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores and
-#: HBM3 bandwidth
+#: H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores,
+#: dense TF32 on the tensor cores, and HBM3 bandwidth
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
+#: Char head shapes held against the plain version: the path's widths,
+#: one line of 64 columns (far fewer tiles than SMs) and a ragged one
+CHAR_SHAPES = [(16, 256), (16, 512), (16, 1024), (16, 2048), (1, 64),
+               (3, 37)]
 
 
 @contextlib.contextmanager
@@ -85,9 +99,9 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, flops, flops_per_s=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes > t_ops else 'operations')
 
 
@@ -159,6 +173,8 @@ def main():
     mono_w = [params['Monochrome/conv_1']['w'], params['Monochrome/conv_1']['b'],
               params['Monochrome/conv_2']['w'], params['Monochrome/conv_2']['b']]
     char_w = [params[f'Char/dense_block/dense_{i}']['w'] for i in (1, 2, 3)]
+    mono_prep = kernels.prepare_monochrome(*mono_w)
+    char_prep = kernels.prepare_char_head(*char_w)
     rng = np.random.default_rng(0)
     errors = {}
 
@@ -169,13 +185,13 @@ def main():
                              device='cuda')
             err = max(err, compare(
                 f'fused_monochrome {shape}', kernels.fused_monochrome(
-                    x, *mono_w),
+                    x, mono_prep),
                 kernels.fused_monochrome_reference(x, *mono_w), MONO_TOL))
         errors['fused_monochrome'] = err
         err = 0.0
-        for n, width in [(16, 256), (16, 2048), (3, 37)]:
+        for n, width in CHAR_SHAPES:
             x = char_inputs(params, rng, n, width)
-            got = kernels.fused_char_head(x, *char_w)
+            got = kernels.fused_char_head(x, char_prep)
             exp = kernels.fused_char_head_reference(x, *char_w)
             err = max(err, compare(f'fused_char_head {(n, width, 64)}',
                                    got, exp, CHAR_TOL))
@@ -230,7 +246,7 @@ def main():
                                         dtype=np.float32), device='cuda')
             n_px = x.numel()
             mono = {
-                'ms': cuda_ms(lambda: kernels.fused_monochrome(x, *mono_w)),
+                'ms': cuda_ms(lambda: kernels.fused_monochrome(x, mono_prep)),
                 'plain_ms': cuda_ms(
                     lambda: kernels.fused_monochrome_reference(x, *mono_w)),
                 'shape': list(x.shape),
@@ -238,6 +254,7 @@ def main():
             mono['bound_ms'], mono['bound_by'] = bound_ms(
                 2 * 4 * n_px + 4 * sum(w.numel() for w in mono_w),
                 2 * (9 * 16 + 9 * 16) * n_px)
+            mono['bound_ffma_ms'] = mono['bound_ms']
             print(f'  fused_monochrome {mono}', flush=True)
             chars = {}
             for width in sorted(set(CHAR_WIDTH_MENU) | set(widths)):
@@ -245,16 +262,18 @@ def main():
                 cols = xc.shape[0] * xc.shape[1]
                 t = {
                     'ms': cuda_ms(lambda: kernels.fused_char_head(
-                        xc, *char_w)),
+                        xc, char_prep)),
                     'plain_ms': cuda_ms(
                         lambda: kernels.fused_char_head_reference(
                             xc, *char_w)),
                     'shape': list(xc.shape),
                 }
+                n_bytes = 4 * (xc.numel() + cols * char_w[2].shape[1]
+                               + sum(w.numel() for w in char_w))
+                flops = 2 * cols * (512 * 1024 + 1024 * 128 + 128 * 162)
                 t['bound_ms'], t['bound_by'] = bound_ms(
-                    4 * (xc.numel() + cols * char_w[2].shape[1]
-                         + sum(w.numel() for w in char_w)),
-                    2 * cols * (512 * 1024 + 1024 * 128 + 128 * 162))
+                    n_bytes, 3 * flops, TF32_FLOPS)
+                t['bound_ffma_ms'] = bound_ms(n_bytes, flops)[0]
                 chars[width] = t
                 print(f'  fused_char_head {t}', flush=True)
             pipeline.ocr_pages(pages)           # warm
@@ -271,12 +290,13 @@ def main():
     # the Char head per launch, over the path's width mix
     n_char = sum(widths.values())
     char = {key: sum(n * chars[w][key] for w, n in widths.items()) / n_char
-            for key in ('ms', 'plain_ms', 'bound_ms')}
+            for key in ('ms', 'plain_ms', 'bound_ms', 'bound_ffma_ms')}
     char['bound_by'] = 'operations' if all(
         chars[w]['bound_by'] == 'operations' for w in widths) else 'bytes'
     char_widths = {str(w): {'launches': n, 'ms': chars[w]['ms'],
                             'plain_ms': chars[w]['plain_ms'],
-                            'bound_ms': chars[w]['bound_ms']}
+                            'bound_ms': chars[w]['bound_ms'],
+                            'bound_ffma_ms': chars[w]['bound_ffma_ms']}
                    for w, n in widths.items()}
     print('kernels ' + json.dumps({
         name: {'launches': launches[name], 'max_abs_err': errors[name]}
@@ -284,7 +304,8 @@ def main():
     print(f'fused_char_head per width on the path: {json.dumps(char_widths)}; '
           f'all launches: {char["ms"] * n_char:.4f} ms kernel, '
           f'{char["plain_ms"] * n_char:.4f} ms plain, '
-          f'{char["bound_ms"] * n_char:.4f} ms bound', flush=True)
+          f'{char["bound_ms"] * n_char:.4f} ms 3xTF32 bound, '
+          f'{char["bound_ffma_ms"] * n_char:.4f} ms FFMA bound', flush=True)
     print(json.dumps({'kernels': [
         {'name': 'fused_monochrome', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/fused_monochrome.cu',
@@ -293,7 +314,7 @@ def main():
          'max_abs_err': errors['fused_monochrome'],
          'ms': mono['ms'], 'plain_ms': mono['plain_ms'],
          'bound_ms': mono['bound_ms'], 'bound_by': mono['bound_by'],
-         'library_ms': None},
+         'bound_ffma_ms': mono['bound_ffma_ms'], 'library_ms': None},
         {'name': 'fused_char_head', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/char_head.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/char_head.py:61',
@@ -301,7 +322,8 @@ def main():
          'max_abs_err': errors['fused_char_head'],
          'ms': char['ms'], 'plain_ms': char['plain_ms'],
          'bound_ms': char['bound_ms'], 'bound_by': char['bound_by'],
-         'library_ms': None, 'widths': char_widths},
+         'bound_ffma_ms': char['bound_ffma_ms'], 'library_ms': None,
+         'widths': char_widths},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -23,7 +23,9 @@ from univer_ocr_tpu.ops.pallas import (fused_char_head as jax_char_head,
 from univer_ocr_tpu_torch.ops.kernels import (LAUNCHES, fused_char_head,
                                               fused_char_head_reference,
                                               fused_monochrome,
-                                              fused_monochrome_reference)
+                                              fused_monochrome_reference,
+                                              prepare_char_head,
+                                              prepare_monochrome)
 from univer_ocr_tpu_torch.ops.kernels.char_head import WIDTH_LAUNCHES
 from univer_ocr_tpu_torch.ops.precision import backend_flags
 
@@ -91,22 +93,37 @@ def test_cpu_wrappers_take_the_plain_path():
     before = dict(LAUNCHES)
     before_widths = dict(WIDTH_LAUNCHES)
     mono = _torch(_mono_inputs(3, (1, 20, 30, 1), signed=True))
-    np.testing.assert_array_equal(fused_monochrome(*mono).numpy(),
-                                  fused_monochrome_reference(*mono).numpy())
+    np.testing.assert_array_equal(
+        fused_monochrome(mono[0], prepare_monochrome(*mono[1:])).numpy(),
+        fused_monochrome_reference(*mono).numpy())
     char = _torch(_char_inputs(4, 2, 12))
-    np.testing.assert_array_equal(fused_char_head(*char).numpy(),
-                                  fused_char_head_reference(*char).numpy())
+    np.testing.assert_array_equal(
+        fused_char_head(char[0], prepare_char_head(*char[1:])).numpy(),
+        fused_char_head_reference(*char).numpy())
     assert dict(LAUNCHES) == before
     assert dict(WIDTH_LAUNCHES) == before_widths
 
 
 def test_wrappers_refuse_other_devices():
-    mono = _torch(_mono_inputs(5, (1, 4, 4, 1)), device='meta')
+    mono = _torch(_mono_inputs(5, (1, 4, 4, 1)))
     with pytest.raises(ValueError):
+        fused_monochrome(mono[0].to('meta'), prepare_monochrome(*mono[1:]))
+    char = _torch(_char_inputs(6, 1, 4))
+    with pytest.raises(ValueError):
+        fused_char_head(char[0].to('meta'), prepare_char_head(*char[1:]))
+
+
+def test_wrappers_refuse_unprepared_weights():
+    mono = _torch(_mono_inputs(9, (1, 4, 4, 1)))
+    with pytest.raises(TypeError):
         fused_monochrome(*mono)
-    char = _torch(_char_inputs(6, 1, 4), device='meta')
+    char = _torch(_char_inputs(10, 1, 4))
+    with pytest.raises(TypeError):
+        fused_char_head(char[0], char[1:])
     with pytest.raises(ValueError):
-        fused_char_head(*char)
+        prepare_char_head(char[1][:-1], *char[2:])
+    with pytest.raises(ValueError):
+        prepare_monochrome(mono[1], mono[2], mono[3][..., :1, :], mono[4])
 
 
 def _need_card():
@@ -119,7 +136,7 @@ def test_fused_monochrome_kernel_on_card():
     _need_card()
     for shape in [(8, 496, 736, 1), (2, 100, 203, 1), (1, 1, 1, 1)]:
         args = _torch(_mono_inputs(7, shape, signed=True), 'cuda')
-        got = fused_monochrome(*args)
+        got = fused_monochrome(args[0], prepare_monochrome(*args[1:]))
         with backend_flags('highest'):
             exp = fused_monochrome_reference(*args)
         torch.cuda.synchronize()
@@ -132,7 +149,7 @@ def test_fused_char_head_kernel_on_card():
     _need_card()
     for n, w in [(16, 256), (3, 37)]:
         args = _torch(_char_inputs(8, n, w), 'cuda')
-        got = fused_char_head(*args)
+        got = fused_char_head(args[0], prepare_char_head(*args[1:]))
         with backend_flags('highest'):
             exp = fused_char_head_reference(*args)
         torch.cuda.synchronize()

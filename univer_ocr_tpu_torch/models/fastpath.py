@@ -12,8 +12,10 @@ activations are NHWC.
 import torch
 
 from .. import ops
-from ..ops.kernels import (fused_char_head, fused_char_head_reference,
-                           fused_monochrome, fused_monochrome_reference)
+from ..ops.kernels import (CharHeadWeights, fused_char_head,
+                           fused_char_head_reference,
+                           fused_monochrome_reference, prepare_char_head,
+                           prepare_monochrome)
 
 LEAKY_ALPHA = 0.01
 
@@ -80,12 +82,12 @@ def char_forward_masked(params, x, w_valid, precision=None, head='xla'):
     conv [64, 64, 64] k(5,3) p(0,1) s(2,1) -> width-8 unfold -> flatten ->
     dense [1024, 128, 162].  `head='xla'` runs the unfold and the dense
     chain as plain ops (the JAX package's name for that path), the fused
-    head's plain version; `head='kernel'` runs them as the fused CUDA
-    kernel (ops/kernels/char_head.py), which always computes in full
-    float32.
+    head's plain version; a `CharHeadWeights` (`char_head_weights`) runs
+    them as the fused CUDA kernel (ops/kernels/char_head.py), which always
+    computes in full float32 (3xTF32).
     """
-    if head not in ('xla', 'kernel'):
-        raise ValueError(f"head must be 'xla' or 'kernel': {head!r}")
+    if head != 'xla' and not isinstance(head, CharHeadWeights):
+        raise ValueError(f"head must be 'xla' or a CharHeadWeights: {head!r}")
     wv = _per_sample(w_valid, x.device)
 
     def mask_w(t):
@@ -99,11 +101,21 @@ def char_forward_masked(params, x, w_valid, precision=None, head='xla'):
                        precision=precision)
         x = mask_w(_leaky(x))
 
-    dense_w = [params[f'Char/dense_block/dense_{i}']['w'] for i in (1, 2, 3)]
     x = x[:, 0, :, :].contiguous()
-    if head == 'kernel':
-        return fused_char_head(x, *dense_w)
-    return fused_char_head_reference(x, *dense_w, precision=precision)
+    if isinstance(head, CharHeadWeights):
+        return fused_char_head(x, head)
+    return fused_char_head_reference(x, *_char_dense(params),
+                                     precision=precision)
+
+
+def _char_dense(params):
+    return [params[f'Char/dense_block/dense_{i}']['w'] for i in (1, 2, 3)]
+
+
+def char_head_weights(params):
+    """The Char dense weights prepared for the fused kernel, once per set
+    of weights."""
+    return prepare_char_head(*_char_dense(params))
 
 
 def monochrome_forward(params, x, prefix='Monochrome', precision=None):
@@ -115,8 +127,8 @@ def monochrome_forward(params, x, prefix='Monochrome', precision=None):
                                       precision=precision)
 
 
-def monochrome_fused(params, x, prefix='Monochrome'):
-    """The Monochrome block through the fused kernel (ops/kernels/
-    fused_monochrome.py), always in full float32."""
+def monochrome_weights(params, prefix='Monochrome'):
+    """The Monochrome weights packed for the fused kernel, once per set of
+    weights."""
     c1, c2 = params[f'{prefix}/conv_1'], params[f'{prefix}/conv_2']
-    return fused_monochrome(x, c1['w'], c1['b'], c2['w'], c2['b'])
+    return prepare_monochrome(c1['w'], c1['b'], c2['w'], c2['b'])

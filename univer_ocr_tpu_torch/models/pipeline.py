@@ -37,8 +37,9 @@ from ..weights import load_checkpoint, params_from_numpy
 from .bucketing import (CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT, CHAR_WIDTH_MENU,
                         line_shape_menu, make_divisible_by, pick_char_width,
                         pick_line_shape)
-from .fastpath import (_mask_hw, char_forward_masked, line_forward_masked,
-                       monochrome_fused)
+from ..ops.kernels import fused_monochrome
+from .fastpath import (_mask_hw, char_forward_masked, char_head_weights,
+                       line_forward_masked, monochrome_weights)
 
 
 def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
@@ -118,6 +119,9 @@ class OCRPipeline:
         self.line_shape_menu = line_shape_menu(page_shape)
         self.params = (load_checkpoint(device=self.device) if weights is None
                        else params_from_numpy(weights, self.device))
+        # the kernels' weights, prepared once for every launch
+        self.mono_weights = monochrome_weights(self.params)
+        self.char_head = char_head_weights(self.params)
         self._pool = ThreadPoolExecutor(max_workers=workers)
 
     def close(self):
@@ -136,7 +140,7 @@ class OCRPipeline:
         paragraph mask).  The map is uint8 when transfers are quantized,
         else float32; the mask is uint8 0/1."""
         x = batch_u8.float() / 255.0
-        m = monochrome_fused(self.params, x)
+        m = fused_monochrome(x, self.mono_weights)
         H, W = self.page_shape[1], self.page_shape[2]
         p = line_forward_masked(self.params, m, H, W, prefix='Paragraph',
                                 precision=self.precision)
@@ -183,7 +187,8 @@ class OCRPipeline:
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
         logits = char_forward_masked(self.params, x, w_valid,
-                                     precision=self.precision, head='kernel')
+                                     precision=self.precision,
+                                     head=self.char_head)
         ids = logits.argmax(dim=-1).to(torch.int32)
         cols = torch.arange(logits.shape[1], device=logits.device)[None, :]
         valid = cols < w_valid.reshape(-1, 1)

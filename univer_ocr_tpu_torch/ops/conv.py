@@ -23,10 +23,11 @@ def conv2d(x, w, b, *, stride=(1, 1), padding=(0, 0), padding_value=0.0,
         xc = F.pad(xc, (pw, pw, ph, ph), value=padding_value)
     wc = w.permute(3, 2, 0, 1)
     if mode == 'bf16':
-        y = F.conv2d(xc.to(torch.bfloat16), wc.to(torch.bfloat16),
-                     stride=tuple(stride)).float()
-    else:
-        y = F.conv2d(xc, wc, stride=tuple(stride))
+        # bf16-rounded operands, float32 sums: JAX's bf16 inputs with
+        # preferred_element_type=float32
+        xc = xc.to(torch.bfloat16).float()
+        wc = wc.to(torch.bfloat16).float()
+    y = F.conv2d(xc, wc, stride=tuple(stride))
     return (y.permute(0, 2, 3, 1) + b).contiguous()
 
 

@@ -13,7 +13,7 @@ def dense(x, w, *, precision=None):
     mode = precision_policy.resolve(precision)
     weight, bias_row = w[:-1, :], w[-1, :]
     if mode == 'bf16':
-        y = (x.to(torch.bfloat16) @ weight.to(torch.bfloat16)).float()
-    else:
-        y = x @ weight
-    return y + bias_row
+        # bf16-rounded operands, float32 sums (ops/precision.py)
+        x = x.to(torch.bfloat16).float()
+        weight = weight.to(torch.bfloat16).float()
+    return x @ weight + bias_row

@@ -1,9 +1,15 @@
 """Hand-written CUDA kernels of the port, one module each, with the plain
-PyTorch version beside each kernel.  `_build.LAUNCHES` counts launches."""
+PyTorch version beside each kernel and the preparation of its weights,
+made once per set of weights.  `_build.LAUNCHES` counts launches."""
 
 from ._build import LAUNCHES
-from .char_head import fused_char_head, fused_char_head_reference
-from .fused_monochrome import fused_monochrome, fused_monochrome_reference
+from .char_head import (CharHeadWeights, fused_char_head,
+                        fused_char_head_reference, prepare_char_head)
+from .fused_monochrome import (MonochromeWeights, fused_monochrome,
+                               fused_monochrome_reference,
+                               prepare_monochrome)
 
-__all__ = ['LAUNCHES', 'fused_char_head', 'fused_char_head_reference',
-           'fused_monochrome', 'fused_monochrome_reference']
+__all__ = ['LAUNCHES', 'CharHeadWeights', 'MonochromeWeights',
+           'fused_char_head', 'fused_char_head_reference',
+           'fused_monochrome', 'fused_monochrome_reference',
+           'prepare_char_head', 'prepare_monochrome']

@@ -6,9 +6,11 @@
     this mode needs TF32 off for both convolutions and matrix products:
     run the ops inside `backend_flags('highest')`.  OCRPipeline's device
     stages do.
-  * 'bf16': inputs cast to bfloat16 for the tensor cores; every result is
-    cast back to float32, as JAX's `preferred_element_type=float32` hands
-    back float32.
+  * 'bf16': inputs and weights rounded to bfloat16, products summed in
+    float32, as JAX's bf16 operands with `preferred_element_type=float32`.
+    A bf16 value is exact in TF32 (10 mantissa bits to bf16's 7), so
+    inside `backend_flags('bf16')`, which turns TF32 on, cuDNN and cuBLAS
+    run these ops on the tensor cores with float32 accumulation.
 """
 
 import contextlib
@@ -30,17 +32,15 @@ def resolve(mode=None):
 @contextlib.contextmanager
 def backend_flags(mode=None):
     """Inside the block, 'highest' turns TF32 off for cuDNN convolutions
-    and cuBLAS matrix products; both switches are restored on exit.
-    'bf16' leaves them as they are.  The switches are process-wide, so
-    enter this from one thread at a time."""
+    and cuBLAS matrix products, and 'bf16' turns it on; both switches are
+    restored on exit.  The switches are process-wide, so enter this from
+    one thread at a time."""
     mode = resolve(mode)
-    if mode != 'highest':
-        yield mode
-        return
+    tf32 = mode == 'bf16'
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         yield mode
     finally:
