@@ -7,17 +7,33 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
 
   device   the card's name and power limit (nvidia-smi) and torch's name
            for it; no card -> exit 1
-  build    one nvcc command builds every univer_ocr_tpu_torch/csrc/*.cu
+  build    one nvcc per univer_ocr_tpu_torch/csrc/*.cu, started together,
+           and one that links them
   kernels  each CUDA kernel against its plain PyTorch version, on seeded
            inputs and the committed checkpoint's weights, at the shapes
-           the main path gives it, at a ragged shape and (Char head) at
+           both paths give it, at a ragged shape and (Char head) at
            far fewer tiles than SMs
   path     the host-cascade OCRPipeline on the committed fixture's pages
            (one chunk of 8), its text held against the JAX host cascade's
            text stored in the fixture; both kernels must have launched
+  device_path
+           the device cascade in its parity mode (`device_cascade=True,
+           exact_bands=True`, sampler 'gather') on the same pages, its
+           text held against the JAX device cascade's text stored in the
+           fixture; both kernels must have launched
   times    CUDA-event times of each kernel and its plain version at the
-           path's shapes (the Char head at every width bucket) beside
-           their bounds, and the path's pages/s (printed, not gated)
+           paths' shapes (the Char head at every width each path
+           launched) beside their bounds; the JAX device cascade's Char
+           head, the width-8 convolution form, beside fused_char_head at
+           the device path's line-stage shape (64 lines, 32 rows, W), the
+           measurement behind the port's choice of the kernel there;
+           pages/s of both cascades in 'highest' and
+           'bf16' (printed, not gated) with each run's stage timers
+           (OCRPipeline.timers) per chunk, the 'bf16' text held against
+           the 'highest' JAX text at JAX's own bar (similarity > 0.9,
+           tests/test_pipeline.py); and one torch.profiler window over a
+           chunk of each cascade: the device's busy share of the window
+           and its top kernels by device time
 
 Bounds: the larger of the bytes (each input read once, each output
 written once) over the HBM rate and the work over the peak rate of the
@@ -27,9 +43,13 @@ tensor cores, so its `bound_ms` is three TF32 products at 495 TFLOP/s;
 (the bound of the FFMA kernel it replaced).  The Monochrome block has no
 tensor-core shape: both its bounds are FFMA.
 
-The Char head's times in the last JSON lines are means per launch over the
-width mix the path launched it with (`WIDTH_LAUNCHES`), with each width's
-own numbers beside them.  Plain versions run with TF32 off (full float32).
+The device path is this slice's main path: each kernel's `launches` in the
+last JSON lines is its count on that path's run, and the Char head's times
+there are means per launch over that run's width mix (`WIDTH_LAUNCHES`),
+with each width's own numbers beside them.  `launches_by_path` gives each
+path's count (each path's run starts with the counts at 0), and the Char
+head's `host_path` entry its times over the host path's mix.  Plain
+versions run with TF32 off (full float32).
 
 Any failure ends the run with a traceback and a non-zero exit before the
 last line, which on success is
@@ -55,6 +75,14 @@ CHUNK = 8
 #: JAX text (float sums in another order can flip a pixel that sits on a
 #: threshold; exact equality is reported beside it)
 TEXT_SIMILARITY = 0.99
+#: similarity of the whole 'bf16' text to the 'highest' text: the JAX
+#: package's own bar (tests/test_pipeline.py,
+#: test_device_cascade_bf16_close_to_f32)
+BF16_SIMILARITY = 0.9
+#: the device cascade's parity mode
+DEVICE_CASCADE = dict(device_cascade=True, exact_bands=True)
+#: timed runs of each pipeline, after one warm-up run
+REPS = 3
 MONO_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_pallas.py bars
 CHAR_TOL = dict(rtol=2e-4, atol=1e-4)
 ARGMAX_AGREEMENT = 0.999
@@ -63,10 +91,8 @@ ARGMAX_AGREEMENT = 0.999
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
-#: Char head shapes held against the plain version: the path's widths,
-#: one line of 64 columns (far fewer tiles than SMs) and a ragged one
-CHAR_SHAPES = [(16, 256), (16, 512), (16, 1024), (16, 2048), (1, 64),
-               (3, 37)]
+#: lines per Char head launch: the host path's and the device path's
+HOST_LINES, DEVICE_LINES = 16, 64
 
 
 @contextlib.contextmanager
@@ -132,6 +158,114 @@ def page_text(page):
     return '\n\n'.join('\n'.join(lines) for lines in page)
 
 
+def check_text(label, results, expected):
+    """Each page's text against the JAX text at TEXT_SIMILARITY."""
+    if len(results) != CHUNK:
+        raise AssertionError(f'{label}: {len(results)} results for {CHUNK}')
+    exact = 0
+    for i, page in enumerate(results):
+        want = expected[i % len(expected)]
+        ratio = difflib.SequenceMatcher(
+            None, page_text(want), page_text(page), autojunk=False).ratio()
+        exact += page == want
+        print(f'  page {i}: {sum(len(p) for p in page)} lines, '
+              f'similarity to the JAX text {ratio:.6f}, '
+              f'exact {page == want}', flush=True)
+        if ratio < TEXT_SIMILARITY:
+            raise AssertionError(f'{label} page {i}: text similarity '
+                                 f'{ratio} < {TEXT_SIMILARITY}')
+    print(f'{label}: {exact}/{CHUNK} pages equal the JAX text exactly',
+          flush=True)
+
+
+def counted_run(pipeline, pages):
+    """One ocr_pages call with every launch count set to 0 just before it;
+    returns (results, launches by kernel, fused_char_head launches by W)."""
+    from univer_ocr_tpu_torch.ops.kernels import LAUNCHES, char_head
+    LAUNCHES.clear()
+    char_head.WIDTH_LAUNCHES.clear()
+    results = pipeline.ocr_pages(pages)
+    torch.cuda.synchronize()
+    return (results, dict(LAUNCHES),
+            dict(sorted(char_head.WIDTH_LAUNCHES.items())))
+
+
+def timed_runs(pipeline, pages, label, expected):
+    """pages/s over REPS runs after a warm one, with the stage timers on
+    for the timed runs.  The warm run's text is held against `expected`,
+    the cascade's 'highest' JAX text: per page in 'highest', as a whole at
+    BF16_SIMILARITY in 'bf16'."""
+    from univer_ocr_tpu_torch.utils.profiling import StageTimers
+    results = pipeline.ocr_pages(pages)           # warm
+    torch.cuda.synchronize()
+    if pipeline.precision == 'bf16':
+        wanted = [expected[i % len(expected)] for i in range(len(results))]
+        ratios = [difflib.SequenceMatcher(
+            None, page_text(want), page_text(page), autojunk=False).ratio()
+            for want, page in zip(wanted, results)]
+        whole = difflib.SequenceMatcher(
+            None, '\n'.join(page_text(want) for want in wanted),
+            '\n'.join(page_text(page) for page in results),
+            autojunk=False).ratio()
+        print(f'  {label}: similarity to the highest JAX text per page '
+              f'{[round(r, 6) for r in ratios]}, whole {whole:.6f}',
+              flush=True)
+        if whole <= BF16_SIMILARITY:
+            raise AssertionError(f'{label}: bf16 text similarity {whole} '
+                                 f'<= {BF16_SIMILARITY}')
+    else:
+        check_text(label, results, expected)
+    pipeline.timers = StageTimers()
+    pipeline.timeline.clear()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        pipeline.ocr_pages(pages)
+    torch.cuda.synchronize()
+    chunk_s = (time.perf_counter() - t0) / REPS
+    stages = {name: round(1e3 * total / REPS, 3)
+              for name, total in sorted(pipeline.timers.totals.items())}
+    pipeline.timers = None
+    print(f'  {label}: {chunk_s * 1e3:.1f} ms per chunk of {CHUNK} pages, '
+          f'{CHUNK / chunk_s:.2f} pages/s', flush=True)
+    print(f'  {label} stage timers, ms per chunk (summed over threads): '
+          f'{json.dumps(stages)}', flush=True)
+    return CHUNK / chunk_s, stages
+
+
+def profile_window(pipeline, pages, label):
+    """One torch.profiler window over one chunk: the device's busy share
+    of the window (device time of every CUDA activity over the window's
+    host time) and its top kernels by device time."""
+    from torch.autograd import DeviceType
+    from univer_ocr_tpu_torch.utils.profiling import device_trace
+    with device_trace(ROOT / 'build' / 'traces' / label) as prof:
+        t0 = time.perf_counter()
+        pipeline.ocr_pages(pages)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(event):
+        for key in ('self_device_time_total', 'self_cuda_time_total'):
+            if hasattr(event, key):
+                return getattr(event, key)
+        return 0.0
+
+    kernels = [(device_us(e), e.count, e.key) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(us for us, _, _ in kernels) / 1e3
+    if busy_ms == 0:
+        print(f'  {label} profiler: key_averages() shows no device time; '
+              f'no busy share read', flush=True)
+        return None
+    top = sorted(kernels, reverse=True)[:8]
+    print(f'  {label} profiler: window {window_ms:.1f} ms, device busy '
+          f'{busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f} %) over '
+          f'{sum(n for _, n, _ in kernels)} device activities', flush=True)
+    for us, n, name in top:
+        print(f'    {us / 1e3:9.3f} ms x{n:<5d} {name[:110]}', flush=True)
+    return busy_ms / window_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this run '
@@ -139,9 +273,14 @@ def main():
         return 1
 
     from univer_ocr_tpu_torch.models.bucketing import CHAR_WIDTH_MENU
+    # the paths' Char head shapes at every width bucket, one line of 64
+    # columns (far fewer tiles than SMs) and a ragged one
+    char_shapes = [(n, w) for n in (HOST_LINES, DEVICE_LINES)
+                   for w in CHAR_WIDTH_MENU] + [(1, 64), (3, 37)]
+    from univer_ocr_tpu_torch.models.fastpath import char_head_conv
     from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
     from univer_ocr_tpu_torch.ops import kernels
-    from univer_ocr_tpu_torch.ops.kernels import _build, char_head
+    from univer_ocr_tpu_torch.ops.kernels import _build
     from univer_ocr_tpu_torch.ops.precision import backend_flags
     from univer_ocr_tpu_torch.weights import load_checkpoint
 
@@ -189,7 +328,7 @@ def main():
                 kernels.fused_monochrome_reference(x, *mono_w), MONO_TOL))
         errors['fused_monochrome'] = err
         err = 0.0
-        for n, width in CHAR_SHAPES:
+        for n, width in char_shapes:
             x = char_inputs(params, rng, n, width)
             got = kernels.fused_char_head(x, char_prep)
             exp = kernels.fused_char_head_reference(x, *char_w)
@@ -205,40 +344,37 @@ def main():
     with np.load(FIXTURE) as f:
         fixture_pages = f['pages']
         expected = json.loads(str(f['texts']))
+        expected_device = json.loads(str(f['device_texts']))
     pages = [fixture_pages[i % len(fixture_pages)][None, :, :, None]
              for i in range(CHUNK)]
 
-    with OCRPipeline(PAGE_SHAPE, chunk=CHUNK, workers=8, collapse_runs=4,
-                     precision='highest', device='cuda') as pipeline:
+    def pipeline(precision, **kwargs):
+        return OCRPipeline(PAGE_SHAPE, weights=params, chunk=CHUNK,
+                           workers=8, collapse_runs=4, precision=precision,
+                           device='cuda', **kwargs)
+
+    launches = {}
+    with pipeline('highest') as host, \
+            pipeline('highest', **DEVICE_CASCADE) as device:
         with phase('path'):
-            kernels.LAUNCHES.clear()
-            char_head.WIDTH_LAUNCHES.clear()
-            results = pipeline.ocr_pages(pages)
-            torch.cuda.synchronize()
-            launches = dict(kernels.LAUNCHES)
-            widths = dict(sorted(char_head.WIDTH_LAUNCHES.items()))
-            print(f'path launches: {launches}; fused_char_head by width: '
-                  f'{widths}', flush=True)
-            if len(results) != CHUNK:
-                raise AssertionError(f'{len(results)} results for {CHUNK}')
-            exact = 0
-            for i, page in enumerate(results):
-                want = expected[i % len(expected)]
-                ratio = difflib.SequenceMatcher(
-                    None, page_text(want), page_text(page),
-                    autojunk=False).ratio()
-                exact += page == want
-                print(f'  page {i}: {sum(len(p) for p in page)} lines, '
-                      f'similarity to the JAX text {ratio:.6f}, '
-                      f'exact {page == want}', flush=True)
-                if ratio < TEXT_SIMILARITY:
-                    raise AssertionError(f'page {i}: text similarity '
-                                         f'{ratio} < {TEXT_SIMILARITY}')
-            print(f'path: {exact}/{CHUNK} pages equal the JAX text exactly',
-                  flush=True)
+            results, launches['path'], widths = counted_run(host, pages)
+            print(f'path launches: {launches["path"]}; fused_char_head by '
+                  f'width: {widths}', flush=True)
+            check_text('path', results, expected)
             for name in ('fused_monochrome', 'fused_char_head'):
-                if launches.get(name, 0) < 1:
+                if launches['path'].get(name, 0) < 1:
                     raise AssertionError(f'{name} did not launch on the path')
+
+        with phase('device_path'):
+            results, launches['device_path'], line_widths = counted_run(
+                device, pages)
+            print(f'device_path launches: {launches["device_path"]}; '
+                  f'fused_char_head by width: {line_widths}', flush=True)
+            check_text('device_path', results, expected_device)
+            for name in ('fused_monochrome', 'fused_char_head'):
+                if launches['device_path'].get(name, 0) < 1:
+                    raise AssertionError(f'{name} did not launch on the '
+                                         f'device path')
 
         with phase('times'), backend_flags('highest'):
             print(f'times on: {card}', flush=True)
@@ -257,8 +393,9 @@ def main():
             mono['bound_ffma_ms'] = mono['bound_ms']
             print(f'  fused_monochrome {mono}', flush=True)
             chars = {}
-            for width in sorted(set(CHAR_WIDTH_MENU) | set(widths)):
-                xc = char_inputs(params, rng, 16, width)
+            for n, width in sorted({(HOST_LINES, w) for w in widths}
+                                   | {(DEVICE_LINES, w) for w in line_widths}):
+                xc = char_inputs(params, rng, n, width)
                 cols = xc.shape[0] * xc.shape[1]
                 t = {
                     'ms': cuda_ms(lambda: kernels.fused_char_head(
@@ -274,43 +411,71 @@ def main():
                 t['bound_ms'], t['bound_by'] = bound_ms(
                     n_bytes, 3 * flops, TF32_FLOPS)
                 t['bound_ffma_ms'] = bound_ms(n_bytes, flops)[0]
-                chars[width] = t
+                chars[n, width] = t
                 print(f'  fused_char_head {t}', flush=True)
-            pipeline.ocr_pages(pages)           # warm
-            torch.cuda.synchronize()
-            reps = 3
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                pipeline.ocr_pages(pages)
-            torch.cuda.synchronize()
-            chunk_s = (time.perf_counter() - t0) / reps
-            print(f'  path: {chunk_s * 1e3:.1f} ms per chunk of {CHUNK} '
-                  f'pages, {CHUNK / chunk_s:.2f} pages/s', flush=True)
+            # the JAX device cascade's Char head (the width-8 convolution
+            # form) beside the kernel at the line stage's shape
+            for width, n in line_widths.items():
+                xc = char_inputs(params, rng, DEVICE_LINES, width)
+                t = {'launches': n, 'shape': list(xc.shape),
+                     'fused_char_head_ms': chars[DEVICE_LINES, width]['ms'],
+                     'conv_highest_ms': cuda_ms(
+                         lambda: char_head_conv(params, xc, 'highest'))}
+                with backend_flags('bf16'):
+                    t['conv_bf16_ms'] = cuda_ms(
+                        lambda: char_head_conv(params, xc, 'bf16'))
+                print(f'  conv head vs fused_char_head at W={width}: {t}',
+                      flush=True)
+            rates = {'host highest': timed_runs(host, pages, 'host highest',
+                                                expected),
+                     'device highest': timed_runs(device, pages,
+                                                  'device highest',
+                                                  expected_device)}
+            for label, kwargs, highest in (
+                    ('host bf16', {}, expected),
+                    ('device bf16', DEVICE_CASCADE, expected_device)):
+                with pipeline('bf16', **kwargs) as pl:
+                    rates[label] = timed_runs(pl, pages, label, highest)
+            print('pages/s ' + json.dumps(
+                {label: round(r[0], 4) for label, r in rates.items()}),
+                flush=True)
+            for label, pl in (('host', host), ('device', device)):
+                profile_window(pl, pages, label)
 
-    # the Char head per launch, over the path's width mix
-    n_char = sum(widths.values())
-    char = {key: sum(n * chars[w][key] for w, n in widths.items()) / n_char
-            for key in ('ms', 'plain_ms', 'bound_ms', 'bound_ffma_ms')}
-    char['bound_by'] = 'operations' if all(
-        chars[w]['bound_by'] == 'operations' for w in widths) else 'bytes'
-    char_widths = {str(w): {'launches': n, 'ms': chars[w]['ms'],
-                            'plain_ms': chars[w]['plain_ms'],
-                            'bound_ms': chars[w]['bound_ms'],
-                            'bound_ffma_ms': chars[w]['bound_ffma_ms']}
-                   for w, n in widths.items()}
+    def char_mix(n_lines, mix, label):
+        """The Char head per launch over one path's width mix."""
+        total = sum(mix.values())
+        keys = ('ms', 'plain_ms', 'bound_ms', 'bound_ffma_ms')
+        out = {key: sum(n * chars[n_lines, w][key] for w, n in mix.items())
+               / total for key in keys}
+        out['bound_by'] = 'operations' if all(
+            chars[n_lines, w]['bound_by'] == 'operations'
+            for w in mix) else 'bytes'
+        out['widths'] = {
+            str(w): {'launches': n, 'shape': chars[n_lines, w]['shape'],
+                     **{key: chars[n_lines, w][key] for key in keys}}
+            for w, n in mix.items()}
+        print(f'fused_char_head on the {label}: {json.dumps(out)}; all '
+              f'{total} launches: {out["ms"] * total:.4f} ms kernel, '
+              f'{out["plain_ms"] * total:.4f} ms plain, '
+              f'{out["bound_ms"] * total:.4f} ms 3xTF32 bound, '
+              f'{out["bound_ffma_ms"] * total:.4f} ms FFMA bound', flush=True)
+        return out
+
+    char = char_mix(DEVICE_LINES, line_widths, 'device path')
+    host_char = char_mix(HOST_LINES, widths, 'host path')
+    by_path = {name: {path: counts.get(name, 0)
+                      for path, counts in launches.items()}
+               for name in ('fused_monochrome', 'fused_char_head')}
     print('kernels ' + json.dumps({
-        name: {'launches': launches[name], 'max_abs_err': errors[name]}
-        for name in ('fused_monochrome', 'fused_char_head')}), flush=True)
-    print(f'fused_char_head per width on the path: {json.dumps(char_widths)}; '
-          f'all launches: {char["ms"] * n_char:.4f} ms kernel, '
-          f'{char["plain_ms"] * n_char:.4f} ms plain, '
-          f'{char["bound_ms"] * n_char:.4f} ms 3xTF32 bound, '
-          f'{char["bound_ffma_ms"] * n_char:.4f} ms FFMA bound', flush=True)
+        name: {'launches': by_path[name], 'max_abs_err': errors[name]}
+        for name in by_path}), flush=True)
     print(json.dumps({'kernels': [
         {'name': 'fused_monochrome', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/fused_monochrome.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/fused_conv.py:87',
-         'launches': launches['fused_monochrome'],
+         'launches': by_path['fused_monochrome']['device_path'],
+         'launches_by_path': by_path['fused_monochrome'],
          'max_abs_err': errors['fused_monochrome'],
          'ms': mono['ms'], 'plain_ms': mono['plain_ms'],
          'bound_ms': mono['bound_ms'], 'bound_by': mono['bound_by'],
@@ -318,12 +483,13 @@ def main():
         {'name': 'fused_char_head', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/char_head.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/char_head.py:61',
-         'launches': launches['fused_char_head'],
+         'launches': by_path['fused_char_head']['device_path'],
+         'launches_by_path': by_path['fused_char_head'],
          'max_abs_err': errors['fused_char_head'],
          'ms': char['ms'], 'plain_ms': char['plain_ms'],
          'bound_ms': char['bound_ms'], 'bound_by': char['bound_by'],
          'bound_ffma_ms': char['bound_ffma_ms'], 'library_ms': None,
-         'widths': char_widths},
+         'widths': char['widths'], 'host_path': host_char},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

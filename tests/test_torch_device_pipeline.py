@@ -1,0 +1,251 @@
+"""The port's OCRPipeline in the device cascade's parity mode
+(`device_cascade=True, exact_bands=True`, sampler 'gather') against the
+JAX package's, and what came with this mode: stage timers, the plain
+versions in the pipeline's precision on the CPU, random initialisation and
+the TF32 switches across threads.
+
+Text is compared by the flip budget of tests/test_pipeline.py (test
+`test_device_cascade_matches_host_pipeline`): the same structure (pages,
+paragraphs, lines), every differing block of the per-page text at most 3
+characters, and at most max(8, len // 200) differing characters a page.
+Float32 sums in another order can flip a pixel that sits on a threshold;
+each such flip perturbs a column or two of one line.  Measured on the CPU
+(4 fixture pages): the port's text equals the JAX text exactly, in both
+cascades and both precisions, and the device cascade's text equals the
+port's host cascade with unquantized transfers exactly."""
+
+import json
+import threading
+from difflib import SequenceMatcher
+
+import numpy as np
+import pytest
+import torch
+
+from univer_ocr_tpu.models.pipeline import OCRPipeline as JaxPipeline
+from univer_ocr_tpu_torch.models import fastpath
+from univer_ocr_tpu_torch.models import pipeline as port_pipeline
+from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
+from univer_ocr_tpu_torch.ops.kernels import (fused_monochrome,
+                                              fused_monochrome_reference,
+                                              prepare_monochrome)
+from univer_ocr_tpu_torch.utils.profiling import StageTimers
+from univer_ocr_tpu_torch.weights import (DEFAULT_CHECKPOINT, load_checkpoint,
+                                          random_params)
+
+from test_torch_fixture import N_PAGES, PAGE_SHAPE, load_fixture
+
+#: the device cascade's stage timers, as the JAX pipeline names them
+DEVICE_STAGES = {'pull_para_bits', 'host_paragraph_plans',
+                 'dispatch_paragraph_stage', 'pull_band_masks',
+                 'host_line_plans', 'dispatch_line_stage', 'pull_char_ids',
+                 'decode_text'}
+#: the host cascade's, named after its device stages where it has them
+HOST_STAGES = {'pull_front', 'host_paragraph_crops', 'line_masks',
+               'host_line_crops', 'char_ids', 'decode_text'}
+
+
+def assert_within_flip_budget(got, expected):
+    assert [[len(lines) for lines in page] for page in got] == \
+        [[len(lines) for lines in page] for page in expected]
+    for page_got, page_exp in zip(got, expected):
+        ta = '\n\n'.join('\n'.join(lines) for lines in page_exp)
+        tb = '\n\n'.join('\n'.join(lines) for lines in page_got)
+        diff_chars = 0
+        for op, i1, i2, j1, j2 in SequenceMatcher(
+                None, ta, tb, autojunk=False).get_opcodes():
+            if op == 'equal':
+                continue
+            block = max(i2 - i1, j2 - j1)
+            assert block <= 3, (op, ta[i1:i2], tb[j1:j2], ta, tb)
+            diff_chars += block
+        assert diff_chars <= max(8, len(ta) // 200), (diff_chars, ta, tb)
+
+
+@pytest.fixture(scope='module')
+def weights():
+    with open(DEFAULT_CHECKPOINT) as fp:
+        return json.load(fp)
+
+
+@pytest.fixture(scope='module')
+def pages():
+    fixture_pages, _ = load_fixture()
+    return [p[None, :, :, None] for p in fixture_pages]
+
+
+def _port(weights, **kwargs):
+    kwargs = dict(dict(chunk=2, workers=2, collapse_runs=4,
+                       precision='highest', device='cpu'), **kwargs)
+    return OCRPipeline(PAGE_SHAPE, weights=weights, **kwargs)
+
+
+@pytest.fixture(scope='module')
+def device_run(weights, pages):
+    """The parity mode on the fixture pages, chunk 2, 'highest', with its
+    stage timers on: (texts, timers, timeline)."""
+    with _port(weights, device_cascade=True, exact_bands=True) as pipeline:
+        pipeline.timers = StageTimers()
+        texts = pipeline.ocr_pages(pages)
+        return texts, pipeline.timers, pipeline.timeline
+
+
+def test_device_cascade_matches_jax_device_cascade(device_run):
+    """Against the JAX device cascade's text stored in the fixture
+    (exact_bands=True, 'highest', collapse_runs=4, on the CPU)."""
+    _, expected = load_fixture('device_texts')
+    got, _, _ = device_run
+    assert len(got) == N_PAGES
+    assert sum(len(lines) for page in got for lines in page) > 0
+    assert_within_flip_budget(got, expected)
+
+
+def test_device_cascade_matches_port_host_cascade(weights, pages,
+                                                  device_run):
+    with _port(weights, quantized_transfers=False) as host:
+        expected = host.ocr_pages(pages)
+    assert_within_flip_budget(device_run[0], expected)
+
+
+def test_device_cascade_stage_timers(device_run):
+    """Every device-cascade stage reports its timer, at the JAX package's
+    places; the D2H pulls land in the timeline."""
+    _, timers, timeline = device_run
+    summary = timers.summary()
+    assert set(summary) == DEVICE_STAGES
+    assert summary['pull_para_bits']['count'] == N_PAGES // 2
+    assert all(s['total_s'] >= 0 for s in summary.values())
+    tags = {tag for tag, start, end, nbytes in timeline}
+    assert tags == {'para_bits', 'bands', 'char_ids'}
+    assert all(end >= start and nbytes > 0
+               for _, start, end, nbytes in timeline)
+
+
+def test_host_cascade_stage_timers(weights, pages):
+    with _port(weights) as host:
+        host.timers = StageTimers()
+        host.ocr_pages(pages[:2])
+        assert set(host.timers.summary()) == HOST_STAGES
+        assert host.timeline == []
+
+
+@pytest.mark.parametrize('cascade', ['host', 'device'])
+def test_bf16_matches_jax_plain_bf16(weights, pages, cascade):
+    """'bf16' against JAX `use_pallas=False` 'bf16' (bf16 operands, float32
+    sums in both), on two fixture pages."""
+    device = cascade == 'device'
+    kwargs = dict(device_cascade=device, exact_bands=device)
+    expected = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2, workers=2,
+                           collapse_runs=4, precision='bf16',
+                           use_pallas=False, **kwargs).ocr_pages(pages[:2])
+    with _port(weights, precision='bf16', **kwargs) as pipeline:
+        assert pipeline.mono_weights is None and pipeline.char_head == 'xla'
+        got = pipeline.ocr_pages(pages[:2])
+    assert sum(len(lines) for page in got for lines in page) > 0
+    assert_within_flip_budget(got, expected)
+
+
+@pytest.mark.parametrize('precision', ['highest', 'bf16'])
+def test_tf32_switches_hold_on_every_thread(weights, pages, precision):
+    """`ocr_pages` sets the TF32 switches once, on the calling thread; the
+    stages, run on the dispatcher and pool threads, all see the mode's
+    values, and the switches are restored after the call."""
+    want = precision == 'bf16'
+    seen = []
+    with _port(weights, chunk=1, device_cascade=True, exact_bands=True,
+               precision=precision) as pipeline:
+        for name in ('front_resident', 'stage_rot_blob', 'stage_rot_res',
+                     'line_stage'):
+            def spy(*args, _fn=getattr(pipeline, name), _name=name):
+                seen.append((_name, threading.current_thread().name,
+                             torch.backends.cudnn.allow_tf32,
+                             torch.backends.cuda.matmul.allow_tf32))
+                return _fn(*args)
+            setattr(pipeline, name, spy)
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = not want
+        torch.backends.cuda.matmul.allow_tf32 = not want
+        try:
+            pipeline.ocr_pages(pages[:2])
+            after = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+    assert after == (not want, not want)
+    assert {name for name, *_ in seen} == {
+        'front_resident', 'stage_rot_blob', 'stage_rot_res', 'line_stage'}
+    threads = {thread for _, thread, *_ in seen}
+    assert 'ocr-dispatcher' in threads and len(threads) >= 2
+    assert all((cudnn, matmul) == (want, want)
+               for _, _, cudnn, matmul in seen)
+
+
+def test_dispatcher_errors_surface_on_the_caller(pages):
+    with _port(None, device_cascade=True, exact_bands=True) as pipeline:
+        def broken(*args):
+            raise RuntimeError('planner fault')
+        pipeline._page_paragraph_plans = broken
+        pipeline.front_resident = lambda batch: (
+            torch.zeros(batch.shape), torch.ones(batch.shape, dtype=torch.uint8))
+        with pytest.raises(RuntimeError, match='planner fault'):
+            pipeline.ocr_pages(pages[:1])
+
+
+def test_unported_combinations_raise():
+    for kwargs in (dict(device_cascade=True),
+                   dict(device_cascade=True, exact_bands=True,
+                        sampler='twopass')):
+        with pytest.raises(NotImplementedError, match='A4b'):
+            OCRPipeline(PAGE_SHAPE, device='cpu', **kwargs)
+
+
+def test_cpu_runs_plain_versions_in_the_pipeline_precision(monkeypatch):
+    """On the CPU the pipeline runs Monochrome and the Char head as their
+    plain versions in its own precision (JAX `use_pallas=False`); the
+    kernels' wrappers, given CPU tensors, run the plain versions in
+    float32, as the kernels compute whatever the mode."""
+    params = load_checkpoint(device='cpu')
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        1, 64, 96, 1).astype(np.float32))
+    mono = [params['Monochrome/conv_1']['w'], params['Monochrome/conv_1']['b'],
+            params['Monochrome/conv_2']['w'], params['Monochrome/conv_2']['b']]
+    f32 = fused_monochrome_reference(x, *mono)
+    bf16 = fused_monochrome_reference(x, *mono, precision='bf16')
+    assert not torch.equal(f32, bf16)
+    assert torch.equal(fused_monochrome(x, prepare_monochrome(*mono)), f32)
+
+    lines = torch.from_numpy(np.random.RandomState(1).rand(
+        2, 32, 16, 1).astype(np.float32))
+    widths = torch.tensor([16, 8])
+    head = fastpath.char_head_weights(params)
+    kernel = fastpath.char_forward_masked(params, lines, widths, head=head)
+    assert torch.equal(kernel, fastpath.char_forward_masked(
+        params, lines, widths, precision='highest', head='xla'))
+
+    heads = []
+    real = fastpath.char_forward_masked
+
+    def spy(*args, head='xla', **kwargs):
+        heads.append((head, kwargs['precision']))
+        return real(*args, head=head, **kwargs)
+    monkeypatch.setattr(port_pipeline, 'char_forward_masked', spy)
+    with OCRPipeline((1, 64, 96, 1), weights=params, precision='bf16',
+                     device='cpu') as plain:
+        assert torch.equal(plain._monochrome(x), bf16)
+        plain.char_ids(lines, widths)
+    assert heads == [('xla', 'bf16')]
+
+
+def test_weights_none_initialises_at_random():
+    with OCRPipeline(PAGE_SHAPE, device='cpu') as pipeline:
+        expected = random_params(torch.Generator().manual_seed(
+            port_pipeline.RANDOM_INIT_SEED), 'cpu')
+        checkpoint = load_checkpoint(device='cpu')
+        for name, entry in expected.items():
+            for k, v in entry.items():
+                assert torch.equal(pipeline.params[name][k], v), (name, k)
+        assert not torch.equal(
+            pipeline.params['Char/dense_block/dense_1']['w'],
+            checkpoint['Char/dense_block/dense_1']['w'])

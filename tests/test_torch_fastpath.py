@@ -83,8 +83,11 @@ def test_line_forward_masked(params, prefix, channels, precision):
             diff.max(), diff.mean())
 
 
-@pytest.mark.parametrize('head', ['xla', 'kernel'])
+@pytest.mark.parametrize('head', ['xla', 'kernel', 'conv'])
 def test_char_forward_masked(params, head):
+    """The 'conv' head (unfold + dense_1 as a width-8 convolution, the
+    JAX device cascade's) is held against JAX's 'conv' head, the others
+    against its 'xla' head."""
     jp, tp = params
     x = _page(2, (3, 32, 64, 1))
     wv = np.array([64, 40, 8], np.int32)
@@ -92,7 +95,8 @@ def test_char_forward_masked(params, head):
         tp, torch.from_numpy(x), torch.from_numpy(wv), precision='highest',
         head=tfp.char_head_weights(tp) if head == 'kernel' else head)
     exp = jfp.char_forward_masked(jp, jnp.asarray(x), jnp.asarray(wv),
-                                  precision='highest', head='xla')
+                                  precision='highest',
+                                  head='conv' if head == 'conv' else 'xla')
     got, exp = got.numpy(), np.asarray(exp)
     assert got.shape == exp.shape == (3, 64, 162)
     scale = np.abs(exp).max()

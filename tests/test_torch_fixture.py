@@ -1,9 +1,11 @@
 """The committed smoke fixture, univer_ocr_tpu_torch/fixtures/
 smoke_pages.npz: 4 synthetic pages (496x736 uint8, rendered by the JAX
-package's generator from a fixed seed, as bench.py renders its pages) and
-the text the JAX host cascade gives for each on the CPU.  chip_smoke.py
-drives the port on the card with these pages, which the card machine
-cannot render (it has no Pillow and no fonts).
+package's generator from a fixed seed, as bench.py renders its pages),
+the text the JAX host cascade gives for each on the CPU (`texts`) and the
+text its device cascade gives in the parity mode (`device_texts`:
+`exact_bands=True`, 'highest', `collapse_runs=4`).  chip_smoke.py drives
+the port on the card with these pages, which the card machine cannot
+render (it has no Pillow and no fonts).
 
 Regenerate with `JAX_PLATFORMS=cpu python tests/test_torch_fixture.py`."""
 
@@ -21,9 +23,16 @@ SEED = 2024
 N_PAGES = 4
 
 
-def load_fixture():
+def load_fixture(key='texts'):
     with np.load(FIXTURE) as f:
-        return f['pages'], json.loads(str(f['texts']))
+        return f['pages'], json.loads(str(f[key]))
+
+
+def _well_formed(texts):
+    assert len(texts) == N_PAGES
+    assert all(isinstance(line, str)
+               for page in texts for para in page for line in para)
+    assert sum(len(para) for page in texts for para in page) > 0
 
 
 def test_fixture_is_small_and_well_formed():
@@ -31,23 +40,34 @@ def test_fixture_is_small_and_well_formed():
     pages, texts = load_fixture()
     assert pages.shape == (N_PAGES,) + PAGE_SHAPE[1:3]
     assert pages.dtype == np.uint8
-    assert len(texts) == N_PAGES
-    assert all(isinstance(line, str)
-               for page in texts for para in page for line in para)
-    assert sum(len(para) for page in texts for para in page) > 0
+    _well_formed(texts)
+
+
+def test_fixture_holds_the_device_cascade_text():
+    """The device cascade's text has the host cascade's structure on these
+    pages: as many paragraphs per page, in the same order (both label the
+    same paragraph mask), each with some lines."""
+    _, texts = load_fixture()
+    _, device_texts = load_fixture('device_texts')
+    _well_formed(device_texts)
+    assert [len(page) for page in device_texts] == [len(page)
+                                                     for page in texts]
 
 
 def test_port_reproduces_the_fixture_text_on_cpu():
     from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
+    from univer_ocr_tpu_torch.weights import load_checkpoint
     pages, texts = load_fixture()
-    with OCRPipeline(PAGE_SHAPE, chunk=N_PAGES, workers=2, collapse_runs=4,
+    with OCRPipeline(PAGE_SHAPE, weights=load_checkpoint(device='cpu'),
+                     chunk=N_PAGES, workers=2, collapse_runs=4,
                      precision='highest', device='cpu') as pipeline:
         got = pipeline.ocr_pages([p[None, :, :, None] for p in pages])
     assert got == texts
 
 
 def generate():
-    """Render the pages and record the JAX host cascade's text."""
+    """Render the pages and record the JAX host and device cascades'
+    text."""
     import jax
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, str(ROOT))
@@ -67,9 +87,15 @@ def generate():
                            workers=2, device_cascade=False,
                            precision='highest', collapse_runs=4)
     texts = pipeline.ocr_pages([p[None, :, :, None] for p in pages])
+    device = OCRPipeline(PAGE_SHAPE, weights=weights, chunk=N_PAGES,
+                         workers=2, device_cascade=True, exact_bands=True,
+                         precision='highest', collapse_runs=4)
+    device_texts = device.ocr_pages([p[None, :, :, None] for p in pages])
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(FIXTURE, pages=pages, texts=np.array(json.dumps(
-        texts, ensure_ascii=False)))
+    np.savez_compressed(
+        FIXTURE, pages=pages,
+        texts=np.array(json.dumps(texts, ensure_ascii=False)),
+        device_texts=np.array(json.dumps(device_texts, ensure_ascii=False)))
     print(f'{FIXTURE}: {FIXTURE.stat().st_size} bytes, '
           f'{sum(len(p) for p in texts)} paragraphs')
 

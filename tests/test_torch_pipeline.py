@@ -19,7 +19,7 @@ from univer_ocr_tpu.models.pipeline import OCRPipeline as JaxPipeline
 from univer_ocr_tpu_torch.device import resolve_device
 from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
 from univer_ocr_tpu_torch.models.predict import predict
-from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
+from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT, load_checkpoint
 
 PAGE_SHAPE = (1, 496, 736, 1)   # 720x480 page after /16 padding
 
@@ -59,8 +59,8 @@ def test_blank_page_matches_jax(weights):
     blank = [np.ones(PAGE_SHAPE, np.float32)]
     expected = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2, workers=1,
                            use_pallas=False).ocr_pages(blank)
-    with OCRPipeline(PAGE_SHAPE, chunk=2, workers=1,
-                     device='cpu') as pipeline:
+    with OCRPipeline(PAGE_SHAPE, weights=load_checkpoint(device='cpu'),
+                     chunk=2, workers=1, device='cpu') as pipeline:
         assert pipeline.ocr_pages(blank) == expected
 
 

@@ -1,0 +1,355 @@
+"""Device-resident cascade, parity mode (univer_ocr_tpu/models/
+device_cascade.py with `exact_bands=True` and the 'gather' sampler).
+
+The monochrome map stays on the device for the whole cascade; the host
+sees only masks and decides geometry, and the pixels it used to crop and
+resample on the CPU are gathered on the device instead:
+
+  * `rotated_paragraph_crops`: crop + blob mask + `ndimage.rotate(order=1)`
+    + rotated-bbox slice as ONE bilinear gather from the page stack, with
+    scipy's rotate convention computed per sample on the host
+    (`rotate_affine`);
+  * `zoomed_line_crops`: line-bbox crop + `np.rot90` +
+    `ndimage.zoom(order=0)` + min-width pad as one nearest gather (the
+    JAX package's line stage takes its one-hot matrix-product form,
+    `zoomed_line_crops_matmul`, because gathers are slow on a TPU; the
+    values are the same).
+
+Both compose with the masked Line/Char forwards (fastpath.py) into the
+stage functions `paragraph_stage*` and the pipeline's line stage.  Masks
+move as one byte per pixel where the JAX package bit-packs them; the bits
+are the same.  The tables mode and the two-pass sampler (the JAX serving
+default) are not ported yet (ROADMAP A4b).
+
+The forwards' convolutions are full float32 in 'highest' only while TF32
+is off: run the stages inside `ops.precision.backend_flags(precision)`
+(OCRPipeline.ocr_pages holds it for every thread of the cascade).
+"""
+
+import numpy as np
+import torch
+
+from .fastpath import _mask_hw, line_forward_masked
+
+# ---------------------------------------------------------------------------
+# Host-side geometry (scipy conventions, computed per sample)
+# ---------------------------------------------------------------------------
+
+
+def rotate_affine(angle_deg, in_h, in_w):
+    """Output shape and output->input affine of
+    `scipy.ndimage.rotate(angle, axes=(2, 1), reshape=True)` on an
+    (in_h, in_w) plane: in = R @ out + offset."""
+    if angle_deg is None:
+        return (in_h, in_w), (1.0, 0.0), (0.0, 0.0)
+    rad = np.deg2rad(angle_deg)
+    cos_a, sin_a = float(np.cos(rad)), float(np.sin(rad))
+    rot = np.array([[cos_a, sin_a], [-sin_a, cos_a]])
+    corners = rot @ np.array([[0, 0, in_h, in_h], [0, in_w, 0, in_w]], float)
+    out_shape = (np.ptp(corners, axis=1) + 0.5).astype(int)
+    offset = ((np.array([in_h, in_w]) - 1) / 2.0
+              - rot @ ((out_shape - 1) / 2.0))
+    return ((int(out_shape[0]), int(out_shape[1])),
+            (cos_a, sin_a), (float(offset[0]), float(offset[1])))
+
+
+#: inverse affine of np.rot90(k, axes=(2, 1)) per k on an (h, w) plane:
+#: rotated[yr, xr] == original[ys, xs] with
+#: ys = A[0]*yr + A[1]*xr + A[2](h, w), xs = A[3]*yr + A[4]*xr + A[5](h, w)
+_ROT90_INVERSE = {
+    0: lambda h, w: (1, 0, 0, 0, 1, 0),
+    1: lambda h, w: (0, -1, h - 1, 1, 0, 0),
+    2: lambda h, w: (-1, 0, h - 1, 0, -1, w - 1),
+    3: lambda h, w: (0, 1, 0, -1, 0, w - 1),
+}
+
+
+def rot90_inverse_affine(rotation, h, w):
+    """Inverse index map of `rotate_array(x, rotation)` for right-angle
+    rotations (np.rot90 with k = (4 - rotation//90) % 4).  Returns the
+    rotated shape and the 6 affine coefficients."""
+    k = 0 if rotation is None else (4 - int(rotation) // 90) % 4
+    out_shape = (h, w) if k % 2 == 0 else (w, h)
+    return out_shape, _ROT90_INVERSE[k](h, w)
+
+
+def zoom_output_width(w, zoom):
+    """scipy.ndimage.zoom output length for one axis."""
+    return int(round(w * zoom))
+
+
+def zoom_ratio(in_len, out_len):
+    """scipy's endpoint-aligned coordinate ratio (grid_mode=False)."""
+    if out_len <= 1:
+        return 0.0
+    return (in_len - 1) / (out_len - 1)
+
+
+# ---------------------------------------------------------------------------
+# Device gathers
+# ---------------------------------------------------------------------------
+
+
+def _per_sample(v, n, dtype, device):
+    return torch.as_tensor(v, device=device).to(dtype).reshape(n, 1, 1)
+
+
+def _bilinear_crops(mono_stack, page_idx, src_y0, src_x0, src_h, src_w,
+                    cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h,
+                    out_w, pad_y, pad_x, out_hb, out_wb, blob=None,
+                    para_stack=None):
+    """The bilinear gather shared by both crop variants: the blob is read
+    from `blob` (bbox-local, (B, HB, WB) bytes) or, when that is None,
+    from `para_stack` at the page coordinates of the mono sample."""
+    dev = mono_stack.device
+    B, HB, WB = page_idx.shape[0], out_hb, out_wb
+
+    def col(v, dtype=torch.float32):
+        return _per_sample(v, B, dtype, dev)
+
+    rows = torch.arange(HB, dtype=torch.float32, device=dev).reshape(1, HB, 1)
+    cols = torch.arange(WB, dtype=torch.float32, device=dev).reshape(1, 1, WB)
+    grid_y = rows + col(out_y0) - col(pad_y)
+    grid_x = cols + col(out_x0) - col(pad_x)
+    cos_c, sin_c = col(cos_a), col(sin_a)
+    in_y = cos_c * grid_y + sin_c * grid_x + col(off_y)
+    in_x = -sin_c * grid_y + cos_c * grid_x + col(off_x)
+
+    y_floor = torch.floor(in_y)
+    x_floor = torch.floor(in_x)
+    wy = in_y - y_floor
+    wx = in_x - x_floor
+    y_base = y_floor.to(torch.int64)
+    x_base = x_floor.to(torch.int64)
+
+    pages = mono_stack[:, :, :, 0].reshape(-1)
+    page_h, page_w = mono_stack.shape[1], mono_stack.shape[2]
+    page = col(page_idx, torch.int64)
+    sy0, sx0 = col(src_y0, torch.int64), col(src_x0, torch.int64)
+    sh, sw = col(src_h, torch.int64), col(src_w, torch.int64)
+
+    # scipy mode='constant': a coordinate anywhere outside [0, size-1] is
+    # entirely cval (no partial edge interpolation)
+    in_domain = ((in_y >= 0) & (in_y <= col(src_h) - 1)
+                 & (in_x >= 0) & (in_x <= col(src_w) - 1))
+    if blob is not None:
+        blob = blob.to(torch.float32).reshape(-1)
+        b_idx = torch.arange(B, device=dev).reshape(B, 1, 1)
+    else:
+        paras = para_stack[:, :, :, 0].reshape(-1)
+
+    def corner(dy, dx):
+        # in-domain coords have all four corners within [0, size-1] after
+        # clamping (the +1 corner only exceeds it with zero weight)
+        yy = torch.clamp(torch.minimum(y_base + dy, sh - 1), min=0)
+        xx = torch.clamp(torch.minimum(x_base + dx, sw - 1), min=0)
+        yp = torch.clamp(sy0 + yy, 0, page_h - 1)
+        xp = torch.clamp(sx0 + xx, 0, page_w - 1)
+        at = (page * page_h + yp) * page_w + xp
+        if blob is None:
+            return pages[at] * paras[at]
+        yb = torch.clamp(yy, 0, HB - 1)
+        xb = torch.clamp(xx, 0, WB - 1)
+        return pages[at] * blob[(b_idx * HB + yb) * WB + xb]
+
+    top = corner(0, 0) * (1 - wx) + corner(0, 1) * wx
+    bottom = corner(1, 0) * (1 - wx) + corner(1, 1) * wx
+    value = top * (1 - wy) + bottom * wy
+
+    out_rows = rows.to(torch.int64)
+    out_cols = cols.to(torch.int64)
+    py, px = col(pad_y, torch.int64), col(pad_x, torch.int64)
+    in_slice = ((out_rows >= py) & (out_rows < py + col(out_h, torch.int64))
+                & (out_cols >= px)
+                & (out_cols < px + col(out_w, torch.int64)))
+    return torch.where(in_domain & in_slice, value,
+                       torch.zeros((), device=dev))[..., None]
+
+
+def rotated_paragraph_crops(mono_stack, blob, page_idx,
+                            src_y0, src_x0, src_h, src_w,
+                            cos_a, sin_a, off_y, off_x,
+                            out_y0, out_x0, out_h, out_w,
+                            pad_y, pad_x):
+    """Deskewed, blob-masked paragraph crops as one bilinear gather.
+
+    Equivalent to crop_and_rotate_single_paragraph (interpreter.py) on the
+    monochrome map: (mono * blob)[bbox] rotated by the deskew angle and
+    sliced to the rotated-mask bbox, zero-padded into a (B, HB, WB, 1)
+    bucket.
+
+    mono_stack : (N, H, W, 1) float32 monochrome maps.
+    blob       : (B, HB, WB) uint8 0/1: the paragraph blob mask of each
+                 sample's bbox at (0, 0), zero-padded.
+    page_idx   : (B,) page of each paragraph.
+    src_*      : (B,) paragraph bbox (y0, x0, h, w) in page coords.
+    cos/sin/off: (B,) float32 scipy rotate affine (out -> in, bbox-local).
+    out_y0/x0  : (B,) rotated-mask bbox offset in the rotated grid.
+    out_h/out_w: (B,) rotated-mask bbox extent; the output is zero beyond
+                 it (bilinear support can bleed one pixel past the
+                 order-0 mask bbox).
+    pad_y/pad_x: (B,) placement of the content inside the bucket,
+                 make_divisible_by's CENTER padding (the stride-2 Line
+                 convs are phase sensitive).
+    """
+    return _bilinear_crops(mono_stack, page_idx, src_y0, src_x0, src_h,
+                           src_w, cos_a, sin_a, off_y, off_x, out_y0,
+                           out_x0, out_h, out_w, pad_y, pad_x,
+                           blob.shape[1], blob.shape[2], blob=blob)
+
+
+def rotated_paragraph_crops_resident(mono_stack, para_stack, page_idx,
+                                     src_y0, src_x0, src_h, src_w,
+                                     cos_a, sin_a, off_y, off_x,
+                                     out_y0, out_x0, out_h, out_w,
+                                     pad_y, pad_x, out_hb, out_wb):
+    """rotated_paragraph_crops with the blob sampled from the device-
+    resident paragraph mask (`para_stack`, (N, H, W, 1) float 0/1; for
+    bboxes that hold one component only): the gather reads mono and mask
+    at the same source coordinates."""
+    return _bilinear_crops(mono_stack, page_idx, src_y0, src_x0, src_h,
+                           src_w, cos_a, sin_a, off_y, off_x, out_y0,
+                           out_x0, out_h, out_w, pad_y, pad_x, out_hb,
+                           out_wb, para_stack=para_stack)
+
+
+def zoomed_line_crops(crop_stack, para_idx,
+                      ratio_y, ratio_x, w_out,
+                      a_yy, a_yx, b_y, a_xy, a_xx, b_x,
+                      out_h, out_w):
+    """Zoomed line crops as one nearest gather from the paragraph crops.
+
+    Equivalent to crop_lines_of_paragraph's per-line bbox crop + rot90
+    orientation fix + ndimage.zoom(order=0) + zero min-width pad
+    (pipeline.py), composed into one integer index map.  Returns
+    (Bl, out_h, out_w, 1) with columns >= w_out zeroed.
+
+    crop_stack : (P, HB, WB, 1) float32 paragraph crops.
+    para_idx   : (Bl,) source crop of each line.
+    ratio_y/x  : (Bl,) float32 scipy zoom coordinate ratios per axis.
+    w_out      : (Bl,) true zoomed width of each line.
+    a_*/b_*    : (Bl,) rot90-inverse affine composed with the line bbox
+                 offset (maps post-rot90 coords to crop coords).
+    out_h/out_w: the output bucket (32, a width-menu entry).
+    """
+    dev = crop_stack.device
+    Bl = para_idx.shape[0]
+
+    def col(v, dtype):
+        return _per_sample(v, Bl, dtype, dev)
+
+    grid_y = torch.arange(out_h, dtype=torch.float32,
+                          device=dev).reshape(1, out_h, 1)
+    grid_x = torch.arange(out_w, dtype=torch.float32,
+                          device=dev).reshape(1, 1, out_w)
+    # scipy zoom: in = out * ratio, spline order 0 rounds via floor(x+0.5)
+    yr = torch.floor(grid_y * col(ratio_y, torch.float32) + 0.5).to(
+        torch.int64)
+    xr = torch.floor(grid_x * col(ratio_x, torch.float32) + 0.5).to(
+        torch.int64)
+    ys = (col(a_yy, torch.int64) * yr + col(a_yx, torch.int64) * xr
+          + col(b_y, torch.int64))
+    xs = (col(a_xy, torch.int64) * yr + col(a_xx, torch.int64) * xr
+          + col(b_x, torch.int64))
+
+    HB, WB = crop_stack.shape[1], crop_stack.shape[2]
+    ys = torch.clamp(ys, 0, HB - 1)
+    xs = torch.clamp(xs, 0, WB - 1)
+    src = col(para_idx, torch.int64)
+    values = crop_stack[:, :, :, 0].reshape(-1)[(src * HB + ys) * WB + xs]
+    cols = torch.arange(out_w, device=dev).reshape(1, 1, out_w)
+    values = torch.where(cols < col(w_out, torch.int64), values,
+                         torch.zeros((), device=dev))
+    return values[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Packed plan matrices: every stage launch carries ~20 scalars per sample,
+# packed into ONE float32 matrix (integer fields are below 2^24, exact in
+# float32) and sliced into columns on the device
+# ---------------------------------------------------------------------------
+
+#: column order of the integer fields of the paragraph-stage plan matrix
+PARAGRAPH_INT_FIELDS = ('page', 'y0', 'x0', 'h', 'w', 'ry0', 'rx0',
+                        'out_h', 'out_w', 'py', 'px', 'hv', 'wv')
+#: column order of its float fields, after the integer ones
+PARAGRAPH_FLT_FIELDS = ('cos', 'sin', 'off_y', 'off_x')
+#: column order of the integer fields of the line-stage plan matrix
+LINE_INT_FIELDS = ('para_idx', 'w_out', 'a_yy', 'a_yx', 'b_y',
+                   'a_xy', 'a_xx', 'b_x', 'w_valid')
+#: column order of its float fields, after the integer ones
+LINE_FLT_FIELDS = ('ratio_y', 'ratio_x')
+
+
+def _unpack(plan, int_fields, flt_fields):
+    ni = len(int_fields)
+    ints = plan[:, :ni].to(torch.int32)
+    iv = {name: ints[:, i] for i, name in enumerate(int_fields)}
+    fv = {name: plan[:, ni + i] for i, name in enumerate(flt_fields)}
+    return iv, fv
+
+
+def unpack_paragraph_plan(plan):
+    """ONE (B, 17) float32 plan matrix -> per-field (B,) column dicts
+    (integer fields cast back exactly)."""
+    return _unpack(plan, PARAGRAPH_INT_FIELDS, PARAGRAPH_FLT_FIELDS)
+
+
+def unpack_line_plan(plan):
+    """ONE (B, 11) float32 plan matrix -> per-field (B,) column dicts."""
+    return _unpack(plan, LINE_INT_FIELDS, LINE_FLT_FIELDS)
+
+
+# ---------------------------------------------------------------------------
+# Stage functions
+# ---------------------------------------------------------------------------
+
+
+def _thresholded_bands(params, crops, h_valid, w_valid, precision=None):
+    """Masked Line forward + the band threshold (arr > 0.5*(mean+max) over
+    the valid region).  Returns the (B, H, W, 2) uint8 0/1 band masks: the
+    bits the JAX package packs with `packbits`."""
+    pred = line_forward_masked(params, crops, h_valid, w_valid,
+                               prefix='Line', precision=precision)
+    pred = _mask_hw(pred, h_valid, w_valid)
+    hv = h_valid.reshape(-1, 1, 1, 1)
+    wv = w_valid.reshape(-1, 1, 1, 1)
+    rows = torch.arange(pred.shape[1], device=pred.device).reshape(
+        1, -1, 1, 1)
+    cols = torch.arange(pred.shape[2], device=pred.device).reshape(
+        1, 1, -1, 1)
+    valid = (rows < hv) & (cols < wv)
+    mean = pred.sum(dim=(1, 2), keepdim=True) / (hv.float() * wv.float())
+    peak = pred.amax(dim=(1, 2), keepdim=True)
+    return ((pred > 0.5 * (mean + peak)) & valid).to(torch.uint8)
+
+
+def paragraph_stage(params, mono_stack, blob, page_idx,
+                    src_y0, src_x0, src_h, src_w,
+                    cos_a, sin_a, off_y, off_x, out_y0, out_x0,
+                    out_h, out_w, pad_y, pad_x, h_valid, w_valid,
+                    precision=None):
+    """Deskewed-paragraph stage: crop resampling + masked Line forward +
+    band threshold.  Returns (crops, band masks)."""
+    crops = rotated_paragraph_crops(
+        mono_stack, blob, page_idx, src_y0, src_x0, src_h, src_w,
+        cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w,
+        pad_y, pad_x)
+    return crops, _thresholded_bands(params, crops, h_valid, w_valid,
+                                     precision=precision)
+
+
+def paragraph_stage_rot_resident(params, mono_stack, para_stack, page_idx,
+                                 src_y0, src_x0, src_h, src_w,
+                                 cos_a, sin_a, off_y, off_x,
+                                 out_y0, out_x0, out_h, out_w,
+                                 pad_y, pad_x, h_valid, w_valid,
+                                 out_hb, out_wb, precision=None):
+    """paragraph_stage without the blob upload (bboxes that hold one
+    component)."""
+    crops = rotated_paragraph_crops_resident(
+        mono_stack, para_stack, page_idx, src_y0, src_x0, src_h, src_w,
+        cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w,
+        pad_y, pad_x, out_hb, out_wb)
+    return crops, _thresholded_bands(params, crops, h_valid, w_valid,
+                                     precision=precision)

@@ -82,12 +82,17 @@ def char_forward_masked(params, x, w_valid, precision=None, head='xla'):
     conv [64, 64, 64] k(5,3) p(0,1) s(2,1) -> width-8 unfold -> flatten ->
     dense [1024, 128, 162].  `head='xla'` runs the unfold and the dense
     chain as plain ops (the JAX package's name for that path), the fused
-    head's plain version; a `CharHeadWeights` (`char_head_weights`) runs
-    them as the fused CUDA kernel (ops/kernels/char_head.py), which always
-    computes in full float32 (3xTF32).
+    head's plain version; `head='conv'` runs the unfold and dense_1 as
+    one width-8 convolution (the JAX device cascade's line stage, which
+    chip_smoke.py times beside the kernel); a
+    `CharHeadWeights` (`char_head_weights`) runs them as the fused CUDA
+    kernel (ops/kernels/char_head.py), which always computes in full
+    float32 (3xTF32).
     """
-    if head != 'xla' and not isinstance(head, CharHeadWeights):
-        raise ValueError(f"head must be 'xla' or a CharHeadWeights: {head!r}")
+    if head not in ('xla', 'conv') and not isinstance(head,
+                                                      CharHeadWeights):
+        raise ValueError("head must be 'xla', 'conv' or a CharHeadWeights: "
+                         f'{head!r}')
     wv = _per_sample(w_valid, x.device)
 
     def mask_w(t):
@@ -102,10 +107,31 @@ def char_forward_masked(params, x, w_valid, precision=None, head='xla'):
         x = mask_w(_leaky(x))
 
     x = x[:, 0, :, :].contiguous()
+    if head == 'conv':
+        return char_head_conv(params, x, precision)
     if isinstance(head, CharHeadWeights):
         return fused_char_head(x, head)
     return fused_char_head_reference(x, *_char_dense(params),
                                      precision=precision)
+
+
+def char_head_conv(params, x, precision):
+    """The Char head as a width-8 convolution (univer_ocr_tpu/models/
+    fastpath.py, head='conv'): output column j of unfold(8) + dense_1
+    reads conv-stack columns [j-4, j+4), flattened as (dx, c) -> dx*C + c,
+    which is an HWIO (1, 8, C, 1024) kernel over the row padded by (4, 3);
+    then dense_2 and dense_3.  x: (N, W, C) -> (N, W, 162) logits."""
+    N, W, C = x.shape
+    w1 = params['Char/dense_block/dense_1']['w']
+    k1 = w1[:-1].reshape(1, 8, C, -1)
+    padded = torch.nn.functional.pad(x, (0, 0, 4, 3))[:, None]
+    h = ops.conv2d(padded, k1, w1[-1], precision=precision)
+    h = _leaky(h).reshape(N * W, -1)
+    h = _leaky(ops.dense(h, params['Char/dense_block/dense_2']['w'],
+                         precision=precision))
+    h = ops.dense(h, params['Char/dense_block/dense_3']['w'],
+                  precision=precision)
+    return h.reshape(N, W, -1)
 
 
 def _char_dense(params):

@@ -1,27 +1,55 @@
-"""Batched OCR inference, host cascade (univer_ocr_tpu/models/pipeline.py
-with `device_cascade=False`).
+"""Batched OCR inference (univer_ocr_tpu/models/pipeline.py), in two
+cascades.
 
-Per chunk of pages:
-  1. `front` on the device: Monochrome (the fused kernel) and Paragraph
-     over the whole chunk, then the mean threshold of the paragraph mask;
+Host cascade (`device_cascade=False`), per chunk of pages:
+  1. `front` on the device: Monochrome and Paragraph over the whole
+     chunk, then the mean threshold of the paragraph mask;
   2. host: label each page's paragraph mask, crop and deskew each
      paragraph of the monochrome map (a thread pool across pages);
   3. `line_masks` on the device: the masked Line forward and its band
      threshold over every paragraph crop of the chunk, in fixed batches of
      bucket-shaped crops;
   4. host: crop and zoom each line band (the thread pool again);
-  5. `char_ids` on the device: the masked Char forward (the fused head
-     kernel) and the argmax over every line of the chunk;
+  5. `char_ids` on the device: the masked Char forward and the argmax
+     over every line of the chunk;
   6. host: decode the ids to text.
+
+Device cascade (`device_cascade=True`, parity mode `exact_bands=True`
+with the 'gather' sampler; models/device_cascade.py): the monochrome map
+and every crop stay on the device.  Per chunk, `front_resident` keeps the
+map and pulls only the paragraph mask; the host labels it and plans each
+paragraph's crop (`_page_paragraph_plans`); the paragraph stage gathers
+the deskewed crops and runs Line + band threshold on the device; the host
+pulls the band masks and plans each line (`_plan_lines`); the line stage
+gathers the zoomed lines and runs Char + argmax on the device; the host
+pulls the ids and decodes.  A dispatcher thread runs
+chunk i+1's dispatch while the caller's thread collects chunk i, and the
+paragraph launches of a chunk are handled in parallel on the pool.
+
+On the card Monochrome and the Char head run as the CUDA kernels
+(ops/kernels), in float32 whatever the precision, as the JAX package's
+Pallas kernels do; on the CPU they run as their plain versions in the
+pipeline's precision, as the JAX package runs them without Pallas.  Both
+cascades take the fused Char head: the JAX device cascade's width-8
+convolution form (`fastpath.char_head_conv`) is slower on an H100.
 
 Numerics follow the JAX pipeline: the uint8 rounding of the monochrome map
 and of the crops (round half to even, as `jnp.round`), the `> 1e-6` mean
-guards, the first-index argmax, `DEVICE_BATCH = 16` and the shape menus.
-The JAX pipeline bit-packs the masks for its transfers; here they move as
-one byte per pixel, with the same bits.
+guards, the first-index argmax, the batch sizes and the shape menus.  The
+JAX pipeline bit-packs the masks it moves; here they move as one byte per
+pixel, with the same bits.
+
+Precision: `ocr_pages` holds `ops.precision.backend_flags(precision)` on
+the calling thread for the whole call.  The TF32 switches it sets are
+process-wide, so they hold for the dispatcher and pool threads too, and
+no stage toggles them; two pipelines of different precisions must not run
+`ocr_pages` at the same time.
 """
 
-import functools
+import contextlib
+import queue
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -30,16 +58,30 @@ from scipy import ndimage
 
 from .. import ops
 from ..device import resolve_device
-from ..interpreter import (bbox, crop_and_rotate_single_paragraph,
-                           label_layer, pred_ids_to_text, rearrange_lines,
-                           rotate_array)
-from ..weights import load_checkpoint, params_from_numpy
+from ..interpreter import (_ORIENTATION_KEYS, _orientation_code, bbox,
+                           crop_and_rotate_single_paragraph,
+                           find_rotation_angle, label_layer,
+                           pred_ids_to_text, rearrange_lines, rotate_array)
+from ..ops.kernels import fused_monochrome
+from ..weights import params_from_numpy, random_params
 from .bucketing import (CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT, CHAR_WIDTH_MENU,
                         line_shape_menu, make_divisible_by, pick_char_width,
                         pick_line_shape)
-from ..ops.kernels import fused_monochrome
+from .device_cascade import (LINE_FLT_FIELDS, LINE_INT_FIELDS,
+                             PARAGRAPH_FLT_FIELDS, PARAGRAPH_INT_FIELDS,
+                             paragraph_stage, paragraph_stage_rot_resident,
+                             rot90_inverse_affine, rotate_affine,
+                             unpack_line_plan, unpack_paragraph_plan,
+                             zoom_output_width, zoom_ratio, zoomed_line_crops)
 from .fastpath import (_mask_hw, char_forward_masked, char_head_weights,
-                       line_forward_masked, monochrome_weights)
+                       line_forward_masked, monochrome_forward,
+                       monochrome_weights)
+
+#: seed of the generator behind `OCRPipeline(weights=None)`
+RANDOM_INIT_SEED = 0
+#: what the device cascade's modes that are not ported yet wait for
+NOT_PORTED = ('the band-tables mode and the two-pass sampler are not '
+              'ported yet (ROADMAP A4b)')
 
 
 def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
@@ -83,49 +125,71 @@ def _to_u8(x):
     return np.round(x * 255.0).astype(np.uint8)
 
 
-def _device_stage(method):
-    """Run a device stage with the TF32 switches its precision needs
-    (ops.precision.backend_flags), restored when it returns."""
-    @functools.wraps(method)
-    def run(self, *args):
-        with ops.precision.backend_flags(self.precision):
-            return method(self, *args)
-    return run
-
-
 class OCRPipeline:
-    """Host-cascade OCR over same-shape pages.
+    """OCR over same-shape pages, by the host or the device cascade.
 
-    `weights`: a `{name: {'w', 'b'}}` dict of arrays or lists (the
-    model_weights.json layout), or None for the committed checkpoint.
-    `device`: None or 'cuda' runs on the card (raising without one);
-    'cpu' runs every stage with the plain PyTorch versions of the kernels.
-    Close the pipeline (`close()` or `with`) to shut its thread pool down.
+    `weights`: a `{name: {'w', 'b'}}` dict of arrays, lists or tensors
+    (the model_weights.json layout; `weights.load_checkpoint()` gives the
+    committed checkpoint), or None for random weights drawn by
+    `weights.random_params` from a generator seeded RANDOM_INIT_SEED, as
+    the JAX pipeline initialises its models when given none.
+    `device`: None or 'cuda' runs on the card (raising without one), with
+    the CUDA kernels; 'cpu' runs on the host, with their plain versions.
+    `device_cascade`, `exact_bands`, `sampler`: as in the JAX pipeline;
+    only the parity mode (`device_cascade=True, exact_bands=True`, sampler
+    'gather') of the device cascade is ported.
+    Set `timers` to a `utils.profiling.StageTimers` to time the stages
+    (with it set, `timeline` records every device-to-host pull as
+    (tag, start, end, bytes)).  Close the pipeline (`close()` or `with`)
+    to shut its thread pools down.
     """
 
     CHAR_WIDTH_MENU = CHAR_WIDTH_MENU
-    #: fixed batch of every Line/Char launch
+    #: fixed batch of the host cascade's Line/Char launches and of the
+    #: paragraph stage
     DEVICE_BATCH = 16
+    #: batch of the device cascade's line stage
+    LINE_DEVICE_BATCH = 64
 
     def __init__(self, page_shape, weights=None, chunk=8, workers=8,
                  collapse_runs=False, quantized_transfers=True,
-                 precision='highest', device=None):
+                 precision='highest', device=None, device_cascade=False,
+                 exact_bands=False, sampler=None):
+        if sampler is None:
+            sampler = 'gather' if exact_bands else 'twopass'
+        if device_cascade and (not exact_bands or sampler != 'gather'):
+            raise NotImplementedError(
+                f'device_cascade=True with exact_bands={exact_bands}, '
+                f'sampler={sampler!r}: {NOT_PORTED}')
         self.device = resolve_device(device)
         self.page_shape = tuple(page_shape)
         self.chunk = chunk
         self.collapse_runs = collapse_runs
         self.quantized_transfers = quantized_transfers
         self.precision = ops.precision.resolve(precision)
+        self.device_cascade = device_cascade
         self.line_shape_menu = line_shape_menu(page_shape)
-        self.params = (load_checkpoint(device=self.device) if weights is None
-                       else params_from_numpy(weights, self.device))
-        # the kernels' weights, prepared once for every launch
-        self.mono_weights = monochrome_weights(self.params)
-        self.char_head = char_head_weights(self.params)
+        if weights:
+            self.params = params_from_numpy(weights, self.device)
+        else:
+            self.params = random_params(
+                torch.Generator().manual_seed(RANDOM_INIT_SEED), self.device)
+        if self.device.type == 'cuda':
+            # the kernels' weights, prepared once for every launch
+            self.mono_weights = monochrome_weights(self.params)
+            self.char_head = char_head_weights(self.params)
+        else:
+            self.mono_weights, self.char_head = None, 'xla'
         self._pool = ThreadPoolExecutor(max_workers=workers)
+        #: device-to-host transfers: each waits on its copy's event here,
+        #: so no dispatching thread blocks on one
+        self._xfer = ThreadPoolExecutor(max_workers=16)
+        self.timers = None
+        self.timeline = []
 
     def close(self):
         self._pool.shutdown(wait=True)
+        self._xfer.shutdown(wait=True)
 
     def __enter__(self):
         return self
@@ -133,26 +197,72 @@ class OCRPipeline:
     def __exit__(self, *exc):
         self.close()
 
-    # -- device stages ---------------------------------------------------
-    @_device_stage
-    def front(self, batch_u8):
-        """(B, H, W, 1) uint8 pages on the device -> (monochrome map,
-        paragraph mask).  The map is uint8 when transfers are quantized,
-        else float32; the mask is uint8 0/1."""
+    def _track(self, name):
+        if self.timers is None:
+            return contextlib.nullcontext()
+        return self.timers.track(name)
+
+    # -- transfers ---------------------------------------------------------
+    def _tensor(self, arr):
+        """Host array -> tensor on the device.  To the card it goes from
+        pinned memory without waiting for the device: a plain copy would
+        wait for every launch queued before it."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == 'cuda':
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _pull(self, t, tag):
+        """Start a device-to-host copy of `t`; returns a future of the
+        numpy array.  From the card the copy goes into pinned memory on the
+        stream, and the transfer pool waits for its event."""
+        if t.device.type == 'cuda':
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = t, None
+
+        def job():
+            start = time.perf_counter()
+            if done is not None:
+                done.synchronize()
+            out = host.numpy()
+            if self.timers is not None:
+                self.timeline.append((tag, start, time.perf_counter(),
+                                      out.nbytes))
+            return out
+        return self._xfer.submit(job)
+
+    # -- device stages -----------------------------------------------------
+    def _monochrome(self, x):
+        if self.mono_weights is None:
+            return monochrome_forward(self.params, x, precision=self.precision)
+        return fused_monochrome(x, self.mono_weights)
+
+    def front_resident(self, batch_u8):
+        """(B, H, W, 1) uint8 pages -> (float32 monochrome map, paragraph
+        mask as uint8 0/1), the mean threshold per page.  The device
+        cascade keeps the map on the device."""
         x = batch_u8.float() / 255.0
-        m = fused_monochrome(x, self.mono_weights)
+        m = self._monochrome(x)
         H, W = self.page_shape[1], self.page_shape[2]
         p = line_forward_masked(self.params, m, H, W, prefix='Paragraph',
                                 precision=self.precision)
         # mean per page, the label_layer rule; the 1e-6 guard keeps a
         # constant map empty, as the host's float64 rule leaves it
         mean = p.mean(dim=(1, 2, 3), keepdim=True)
-        p_mask = ((p - mean) > 1e-6).to(torch.uint8)
+        return m, ((p - mean) > 1e-6).to(torch.uint8)
+
+    def front(self, batch_u8):
+        """Host cascade front: the monochrome map is uint8 when transfers
+        are quantized, else float32."""
+        m, p_mask = self.front_resident(batch_u8)
         if self.quantized_transfers:
             m = torch.round(m * 255.0).to(torch.uint8)
         return m, p_mask
 
-    @_device_stage
     def line_masks(self, x_u8, h_valid, w_valid):
         """Masked Line forward + band threshold over each sample's valid
         region (the rule arr > 0.5 * (mean + max)) -> uint8 0/1 masks."""
@@ -175,15 +285,13 @@ class OCRPipeline:
         mask = ((pred - 0.5 * (mean + mx)) > 1e-6) & valid
         return mask.to(torch.uint8)
 
-    @_device_stage
     def line_preds(self, x, h_valid, w_valid):
         """Unquantized transfers: the masked Line forward itself."""
         return line_forward_masked(self.params, x, h_valid, w_valid,
                                    prefix='Line', precision=self.precision)
 
-    @_device_stage
     def char_ids(self, x, w_valid):
-        """Masked Char forward (fused head) + argmax -> (ids, valid)."""
+        """Masked Char forward + argmax -> (ids, valid)."""
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
         logits = char_forward_masked(self.params, x, w_valid,
@@ -194,9 +302,76 @@ class OCRPipeline:
         valid = cols < w_valid.reshape(-1, 1)
         return ids, valid
 
-    # -- host stages -----------------------------------------------------
-    def _tensor(self, arr):
-        return torch.from_numpy(arr).to(self.device)
+    def stage_rot_blob(self, mono_stack, blob, plan):
+        """Paragraph stage with the blobs uploaded: (crops, band masks)."""
+        iv, fv = unpack_paragraph_plan(plan)
+        return paragraph_stage(
+            self.params, mono_stack, blob, iv['page'], iv['y0'], iv['x0'],
+            iv['h'], iv['w'], fv['cos'], fv['sin'], fv['off_y'],
+            fv['off_x'], iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'],
+            iv['py'], iv['px'], iv['hv'], iv['wv'], precision=self.precision)
+
+    def stage_rot_res(self, mono_stack, para_stack, plan, hb, wb):
+        """Paragraph stage with the blobs read from the resident mask."""
+        iv, fv = unpack_paragraph_plan(plan)
+        return paragraph_stage_rot_resident(
+            self.params, mono_stack, para_stack, iv['page'], iv['y0'],
+            iv['x0'], iv['h'], iv['w'], fv['cos'], fv['sin'], fv['off_y'],
+            fv['off_x'], iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'],
+            iv['py'], iv['px'], iv['hv'], iv['wv'], hb, wb,
+            precision=self.precision)
+
+    def line_stage(self, crop_stack, plan, out_h, out_w):
+        """Zoomed line crops (one gather) + Char forward + argmax -> (B,
+        out_w) uint8 ids, 255 at columns at or past each line's true
+        width.  In 'bf16' the Char forward's first convolution rounds the
+        gathered values to bfloat16, as the JAX package rounds the crop
+        before its one-hot zoom."""
+        iv, fv = unpack_line_plan(plan)
+        w_valid = iv['w_valid']
+        lines = zoomed_line_crops(
+            crop_stack, iv['para_idx'], fv['ratio_y'], fv['ratio_x'],
+            iv['w_out'], iv['a_yy'], iv['a_yx'], iv['b_y'], iv['a_xy'],
+            iv['a_xx'], iv['b_x'], out_h, out_w)
+        logits = char_forward_masked(self.params, lines, w_valid,
+                                     precision=self.precision,
+                                     head=self.char_head)
+        ids = logits.argmax(dim=-1)
+        cols = torch.arange(logits.shape[1], device=logits.device)[None, :]
+        valid = cols < w_valid.reshape(-1, 1)
+        return torch.where(valid, ids, 255).to(torch.uint8)
+
+    # -- entry -------------------------------------------------------------
+    def ocr_pages(self, pages):
+        """pages: list of (1, H, W, 1) float arrays in [0, 1] or uint8
+        arrays, all of `page_shape`.  Returns per page:
+        [paragraph][line] -> decoded text."""
+        chunks = [pages[start:start + self.chunk]
+                  for start in range(0, len(pages), self.chunk)]
+        with ops.precision.backend_flags(self.precision):
+            if self.device_cascade:
+                return self._ocr_pages_device(chunks)
+            return self._ocr_pages_host(chunks)
+
+    def _upload_pages(self, chunk):
+        batch = np.concatenate([
+            np.asarray(np.asarray(p) * 255.0, np.uint8)
+            if np.asarray(p).dtype != np.uint8 else np.asarray(p)
+            for p in chunk])
+        return self._tensor(batch)
+
+    # -- host cascade ------------------------------------------------------
+    def _ocr_pages_host(self, chunks):
+        results = []
+        pending = self.front(self._upload_pages(chunks[0])) if chunks else None
+        for i, chunk in enumerate(chunks):
+            with self._track('pull_front'):
+                mono, para = (t.cpu().numpy() for t in pending)
+            # queue the next chunk's front before this chunk's host work
+            if i + 1 < len(chunks):
+                pending = self.front(self._upload_pages(chunks[i + 1]))
+            results.extend(self._ocr_chunk(chunk, mono, para))
+        return results
 
     def _crop_page(self, mono_pred, para_mask):
         """Label the thresholded paragraph mask, crop and deskew the
@@ -278,41 +453,19 @@ class OCRPipeline:
                 preds[i] = (ids[bi, :w], valid[bi, :w])
         return preds
 
-    # -- entry -------------------------------------------------------------
-    def _dispatch_front(self, chunk):
-        batch = np.concatenate([
-            np.asarray(np.asarray(p) * 255.0, np.uint8)
-            if np.asarray(p).dtype != np.uint8 else np.asarray(p)
-            for p in chunk])
-        return self.front(self._tensor(batch))
-
-    def ocr_pages(self, pages):
-        """pages: list of (1, H, W, 1) float arrays in [0, 1] or uint8
-        arrays, all of `page_shape`.  Returns per page:
-        [paragraph][line] -> decoded text."""
-        chunks = [pages[start:start + self.chunk]
-                  for start in range(0, len(pages), self.chunk)]
-        results = []
-        pending = self._dispatch_front(chunks[0]) if chunks else None
-        for i, chunk in enumerate(chunks):
-            mono, para = (t.cpu().numpy() for t in pending)
-            # queue the next chunk's front before this chunk's host work
-            if i + 1 < len(chunks):
-                pending = self._dispatch_front(chunks[i + 1])
-            results.extend(self._ocr_chunk(chunk, mono, para))
-        return results
-
     def _ocr_chunk(self, pages, mono, para):
         n = len(pages)
         if self.quantized_transfers:
             mono = mono.astype(np.float32) / 255.0
 
-        crops_per_page = list(self._pool.map(
-            lambda i: self._crop_page(mono[i:i + 1], para[i:i + 1]),
-            range(n)))
+        with self._track('host_paragraph_crops'):
+            crops_per_page = list(self._pool.map(
+                lambda i: self._crop_page(mono[i:i + 1], para[i:i + 1]),
+                range(n)))
 
         flat_crops = [c for crops in crops_per_page for c in crops]
-        flat_line_preds = self._run_line_batched(flat_crops)
+        with self._track('line_masks'):
+            flat_line_preds = self._run_line_batched(flat_crops)
 
         def crop_lines(k):
             return crop_lines_of_paragraph(
@@ -320,14 +473,17 @@ class OCRPipeline:
                 CHAR_INPUT_HEIGHT, CHAR_FIXED_WIDTH,
                 thresholded_input=self.quantized_transfers)
 
-        lines_per_crop = list(self._pool.map(crop_lines,
-                                             range(len(flat_crops))))
+        with self._track('host_line_crops'):
+            lines_per_crop = list(self._pool.map(crop_lines,
+                                                 range(len(flat_crops))))
 
         flat_lines = [l for lines in lines_per_crop for l in lines]
-        flat_ids = self._run_char_batched(flat_lines) if flat_lines else []
+        with self._track('char_ids'):
+            flat_ids = self._run_char_batched(flat_lines) if flat_lines else []
 
-        texts = [pred_ids_to_text(ids, valid, self.collapse_runs).strip()
-                 for ids, valid in flat_ids]
+        with self._track('decode_text'):
+            texts = [pred_ids_to_text(ids, valid, self.collapse_runs).strip()
+                     for ids, valid in flat_ids]
 
         results = []
         li = 0
@@ -340,4 +496,347 @@ class OCRPipeline:
                 li += n_lines
                 ci += 1
             results.append(page_result)
+        return results
+
+    # -- device cascade: host planning -------------------------------------
+    def _page_paragraph_plans(self, page_idx, para2d):
+        """Label one page's paragraph mask and plan each blob's crop for
+        the affine gather: level paragraphs (angle None) carry the
+        identity affine, deskewed ones the scipy rotate affine."""
+        labels, _ = ndimage.label(para2d > 0)
+        plans = []
+        for label_id, sl in enumerate(ndimage.find_objects(labels), start=1):
+            if sl is None:
+                continue
+            blob = labels[sl] == label_id
+            h, w = blob.shape
+            angle = find_rotation_angle(blob[None, :, :, None])
+            if angle is None:
+                (cos_a, sin_a), off = (1.0, 0.0), (0.0, 0.0)
+                ry0 = rx0 = 0
+                out_h, out_w = h, w
+            else:
+                _, (cos_a, sin_a), off = rotate_affine(angle, h, w)
+                # nearest rotation of the 0/1 mask as uint8: the values of
+                # rotating the boolean mask, which find_objects refuses on
+                # some scipy versions
+                rot0 = rotate_array(blob[None, :, :, None].astype(np.uint8),
+                                    angle, good_rotation=False)
+                _, ry, rx, _ = bbox(rot0)
+                ry0, rx0 = ry.start, rx.start
+                out_h, out_w = ry.stop - ry.start, rx.stop - rx.start
+            # make_divisible_by: CENTER pad, always adding at least one
+            # row/column; the Line model's stride-2 convs are phase
+            # sensitive, so placement must match the host path exactly
+            pad_h, pad_w = 16 - out_h % 16, 16 - out_w % 16
+            hv, wv = out_h + pad_h, out_w + pad_w
+            py, px = pad_h // 2, pad_w // 2
+            hb, wb = pick_line_shape(self.line_shape_menu, max(h, hv),
+                                     max(w, wv))
+            # a rotated page-diagonal paragraph can exceed the page-sized
+            # menu: clamp
+            out_h, hv = min(out_h, hb), min(hv, hb)
+            out_w, wv = min(out_w, wb), min(wv, wb)
+            # when the bbox holds pixels of no other component, the blob
+            # is the resident mask inside the bbox: no upload needed
+            region = labels[sl]
+            needs_blob = bool(((region > 0) & (region != label_id)).any())
+            # the blob in bbox-local coords at (0, 0)
+            buf = np.zeros((hb, wb), np.uint8)
+            buf[:min(h, hb), :min(w, wb)] = blob[:hb, :wb]
+            plans.append({
+                'page': page_idx, 'y0': sl[0].start, 'x0': sl[1].start,
+                'h': h, 'w': w, 'cos': cos_a, 'sin': sin_a,
+                'off_y': off[0], 'off_x': off[1], 'ry0': ry0, 'rx0': rx0,
+                'out_h': out_h, 'out_w': out_w, 'py': py, 'px': px,
+                'hv': hv, 'wv': wv, 'rotated': angle is not None,
+                'needs_blob': needs_blob, 'menu': (hb, wb), 'blob': buf,
+            })
+        return plans
+
+    @staticmethod
+    def _band_blob_stats(mask2d):
+        """label_layer semantics on one band channel without a full-size
+        mask per blob: one labels pass, then per-blob bboxes and centres
+        of mass."""
+        thresholded = mask2d > np.mean(mask2d)
+        labels, cnt = ndimage.label(thresholded)
+        if cnt == 0:
+            return [], np.zeros((0, 2))
+        bboxes = ndimage.find_objects(labels, cnt)
+        # centres bit-identical to the host path's per-mask
+        # np.argwhere(mask).mean(axis=0): one raster-order argwhere
+        # grouped by label, np.mean over each group (the same values in
+        # the same order, so near-tie pairings cannot diverge)
+        coords = np.argwhere(thresholded)
+        lab = labels[thresholded]
+        order = np.argsort(lab, kind='stable')
+        coords = coords[order].astype(float)
+        ends = np.searchsorted(lab[order], np.arange(2, cnt + 2))
+        starts = np.concatenate([[0], ends[:-1]])
+        centers = np.stack([coords[a:b].mean(axis=0)
+                            for a, b in zip(starts, ends)])
+        return bboxes, centers
+
+    def _plan_lines(self, bands):
+        """Line gather plans from one paragraph's thresholded (H, W, 2)
+        band masks: the geometry half of crop_lines_of_paragraph."""
+        top_boxes, cm_top = self._band_blob_stats(bands[:, :, 0])
+        bottom_boxes, cm_bottom = self._band_blob_stats(bands[:, :, 1])
+        bboxes, rotation = self._pair_lines(top_boxes, cm_top,
+                                            bottom_boxes, cm_bottom)
+        return self._plans_from_bboxes(bboxes, rotation)
+
+    @staticmethod
+    def _pair_lines(top_boxes, cm_top, bottom_boxes, cm_bottom):
+        """Pairing, orientation and reading order (rearrange_lines) on
+        per-blob (bbox slices, centres) of both channels.  Returns (line
+        bboxes, rot90 code)."""
+        if not len(top_boxes) or not len(bottom_boxes):
+            return [], 0
+        d = np.linalg.norm(cm_top[:, None, :] - cm_bottom[None, :, :],
+                           axis=-1)
+        pick = d.argmin(axis=1)
+        bottom_boxes = [bottom_boxes[i] for i in pick]
+        cm_bottom = cm_bottom[pick]
+
+        delta = cm_top[0] - cm_bottom[0]
+        rotation = _orientation_code(delta[0], delta[1])
+        axis, sign = _ORIENTATION_KEYS[rotation]
+        order_top = np.argsort(sign * cm_top[:, axis - 1], kind='stable')
+        order_bottom = np.argsort(sign * cm_bottom[:, axis - 1],
+                                  kind='stable')
+        bboxes = []
+        for ti, bi in zip(order_top, order_bottom):
+            ty, tx = top_boxes[ti]
+            by_, bx_ = bottom_boxes[bi]
+            bboxes.append((
+                slice(min(ty.start, by_.start), max(ty.stop, by_.stop)),
+                slice(min(tx.start, bx_.start), max(tx.stop, bx_.stop))))
+        return bboxes, rotation
+
+    @staticmethod
+    def _plans_from_bboxes(bboxes, rotation):
+        line_plans = []
+        for y, x in bboxes:
+            h_l, w_l = y.stop - y.start, x.stop - x.start
+            (lh, lw), (a_yy, a_yx, b_y, a_xy, a_xx, b_x) = (
+                rot90_inverse_affine(rotation, h_l, w_l))
+            zf = CHAR_INPUT_HEIGHT / lh
+            w_out = zoom_output_width(lw, zf)
+            line_plans.append({
+                'ratio_y': zoom_ratio(lh, CHAR_INPUT_HEIGHT),
+                'ratio_x': zoom_ratio(lw, w_out),
+                'w_out': w_out,
+                'a_yy': a_yy, 'a_yx': a_yx, 'b_y': b_y + y.start,
+                'a_xy': a_xy, 'a_xx': a_xx, 'b_x': b_x + x.start,
+                'w_valid': max(w_out, CHAR_FIXED_WIDTH),
+            })
+        return line_plans
+
+    # -- device cascade: launches --------------------------------------------
+    def _dispatch_paragraph_stage(self, stacks, plans):
+        """Launch the crop + Line stage for all plans, grouped by shape
+        menu; bboxes of one component read the resident mask, the others
+        upload their blobs.  Returns [(plan indices, crops, band masks)],
+        all on the device."""
+        mono_dev, para_dev = stacks
+        groups = {}
+        for i, plan in enumerate(plans):
+            groups.setdefault(plan['menu'], []).append(i)
+        B = self.DEVICE_BATCH
+        ni = len(PARAGRAPH_INT_FIELDS)
+        launches = []
+        for (hb, wb), idxs in groups.items():
+            # blob-needing plans first, so that as few launches as
+            # possible upload blobs; the launch count stays ceil(n / B)
+            idxs = sorted(idxs, key=lambda i: not plans[i]['needs_blob'])
+            start = 0
+            while start < len(idxs):
+                # a tail of 4 or fewer plans takes a batch of 4, as in the
+                # JAX package's parity mode
+                Bsub = 4 if len(idxs) - start <= 4 else B
+                sel = idxs[start:start + Bsub]
+                start += Bsub
+                needs_blob = any(plans[i]['needs_blob'] for i in sel)
+                mat = np.zeros((Bsub, ni + len(PARAGRAPH_FLT_FIELDS)),
+                               np.float32)
+                # filler rows: a harmless 4x4 crop at the stack origin
+                for ci, k in enumerate(PARAGRAPH_INT_FIELDS):
+                    if k in ('h', 'w', 'out_h', 'out_w', 'hv', 'wv',
+                             'y0', 'x0'):
+                        mat[:, ci] = 4
+                mat[:, ni] = 1.0                         # cos
+                blob = (np.zeros((Bsub, hb, wb), np.uint8) if needs_blob
+                        else None)
+                for bi, i in enumerate(sel):
+                    plan = plans[i]
+                    if needs_blob:
+                        blob[bi] = plan['blob']
+                    for ci, k in enumerate(PARAGRAPH_INT_FIELDS):
+                        mat[bi, ci] = plan[k]
+                    for ci, k in enumerate(PARAGRAPH_FLT_FIELDS):
+                        mat[bi, ni + ci] = plan[k]
+                pv = self._tensor(mat)
+                if needs_blob:
+                    crops, bands = self.stage_rot_blob(
+                        mono_dev, self._tensor(blob), pv)
+                else:
+                    crops, bands = self.stage_rot_res(mono_dev, para_dev, pv,
+                                                      hb, wb)
+                launches.append((sel, crops, bands))
+        return launches
+
+    def _dispatch_line_stage(self, crops_dev, line_plans):
+        """Launch the zoom + Char stage for all lines of one paragraph
+        launch.  line_plans: [(slot, plan)].  All lines of the launch share
+        ONE width bucket, the widest any of them needs.  Returns
+        [(plan refs, ids on the device)]."""
+        if not line_plans:
+            return []
+        wc = max(pick_char_width(plan['w_valid']) for _, plan in line_plans)
+        B = self.LINE_DEVICE_BATCH
+        ni = len(LINE_INT_FIELDS)
+        launches = []
+        for start in range(0, len(line_plans), B):
+            sel = list(range(start, min(start + B, len(line_plans))))
+            mat = np.zeros((B, ni + len(LINE_FLT_FIELDS)), np.float32)
+            mat[:, LINE_INT_FIELDS.index('w_valid')] = CHAR_FIXED_WIDTH
+            for bi, ref in enumerate(sel):
+                slot, plan = line_plans[ref]
+                mat[bi, 0] = slot                        # para_idx
+                for ci, k in enumerate(LINE_INT_FIELDS[1:], start=1):
+                    mat[bi, ci] = plan[k]
+                for ci, k in enumerate(LINE_FLT_FIELDS):
+                    mat[bi, ni + ci] = plan[k]
+            ids = self.line_stage(crops_dev, self._tensor(mat),
+                                  CHAR_INPUT_HEIGHT, wc)
+            launches.append((sel, ids))
+        return launches
+
+    def _pad_stack(self, arr):
+        """Pad a tail chunk's page stack with blank pages to `chunk`, so
+        every launch sees the stack shape of a full chunk, as in the JAX
+        package (no plan reads the filler pages)."""
+        b = arr.shape[0]
+        if b >= self.chunk:
+            return arr
+        return torch.cat([arr, arr.new_zeros((self.chunk - b,)
+                                             + tuple(arr.shape[1:]))])
+
+    # -- device cascade: one chunk -------------------------------------------
+    def _dispatch_front_device(self, chunk):
+        """Launch a chunk's front and start the pull of its paragraph
+        mask.  Returns (pages, map, mask, future of the host mask)."""
+        mono_dev, para_dev = self.front_resident(self._upload_pages(chunk))
+        return (len(chunk), mono_dev, para_dev,
+                self._pull(para_dev, 'para_bits'))
+
+    def _dispatch_chunk_device(self, n_pages, mono_dev, para_dev, para):
+        """Dispatch phase of one chunk: paragraph plans and stage launches
+        with their band-mask pulls in flight, then, per paragraph launch on
+        the pool, line plans and line-stage launches with their id pulls in
+        flight.  Never waits for a result the collect phase can wait for.
+        `para` is the host copy of the (n, H, W, 1) paragraph mask."""
+        mono_dev = self._pad_stack(mono_dev)
+        # the float 0/1 stack the resident crop gather reads
+        para_dev = self._pad_stack(para_dev).float()
+        with self._track('host_paragraph_plans'):
+            # serial: scipy's ndimage calls hold the GIL
+            plans = [p
+                     for page in range(n_pages)
+                     for p in self._page_paragraph_plans(page,
+                                                         para[page, :, :, 0])]
+        return self._finish_dispatch(n_pages, mono_dev, para_dev, plans)
+
+    def _finish_dispatch(self, n_pages, mono_dev, para_dev, plans):
+        with self._track('dispatch_paragraph_stage'):
+            launches = self._dispatch_paragraph_stage((mono_dev, para_dev),
+                                                      plans)
+        band_futures = [self._pull(bands, 'bands') for _, _, bands in launches]
+
+        def handle_launch(item):
+            """Band masks -> line plans -> line-stage launches for ONE
+            paragraph launch; launches run in parallel, so pulls, host CCL
+            and dispatches overlap."""
+            (sel, crops_dev, _), fut = item
+            with self._track('pull_band_masks'):
+                bands = fut.result()
+            with self._track('host_line_plans'):
+                flat = []
+                for bi in range(len(sel)):
+                    plan = plans[sel[bi]]
+                    view = bands[bi, :plan['hv'], :plan['wv'], :] > 0
+                    flat.extend((bi, lp) for lp in self._plan_lines(view))
+            with self._track('dispatch_line_stage'):
+                refs = self._dispatch_line_stage(crops_dev, flat)
+            id_futures = [(ref_sel, self._pull(ids_dev, 'char_ids'))
+                          for ref_sel, ids_dev in refs]
+            return sel, flat, id_futures
+
+        char_launches = list(self._pool.map(handle_launch,
+                                            zip(launches, band_futures)))
+        return n_pages, plans, char_launches
+
+    def _collect_chunk_device(self, state):
+        """Collect phase: wait for the id pulls and decode the text."""
+        n_pages, plans, char_launches = state
+        texts = {}                      # plan index -> [line text]
+        for sel, flat, id_futures in char_launches:
+            line_texts = [None] * len(flat)
+            for ref_sel, fut in id_futures:
+                with self._track('pull_char_ids'):
+                    ids = fut.result()
+                with self._track('decode_text'):
+                    for bi, ref in enumerate(ref_sel):
+                        row = ids[bi, :flat[ref][1]['w_valid']]
+                        # edge whitespace is crop margin, not content
+                        line_texts[ref] = pred_ids_to_text(
+                            row, row != 255, self.collapse_runs).strip()
+            cursor = 0
+            for bi, i in enumerate(sel):
+                n_lines = sum(1 for slot, _ in flat if slot == bi)
+                texts[i] = line_texts[cursor:cursor + n_lines]
+                cursor += n_lines
+        results = [[] for _ in range(n_pages)]
+        for i, plan in enumerate(plans):
+            results[plan['page']].append(texts.get(i, []))
+        return results
+
+    def _ocr_pages_device(self, chunks):
+        """Software-pipelined chunks: a dispatcher thread runs the dispatch
+        phase (front, paragraph plans, stage launches, pulls) while this
+        thread collects the previous chunk.  Fronts are launched one chunk
+        ahead, and the bounded queue caps the chunks held on the device.
+        An error on the dispatcher is raised here."""
+        states = queue.Queue(maxsize=2)
+
+        def dispatcher():
+            try:
+                pending = None
+                for i, chunk in enumerate(chunks):
+                    if pending is None:
+                        pending = self._dispatch_front_device(chunk)
+                    n_pages, mono_dev, para_dev, bits = pending
+                    # launch chunk i+1's front before waiting on chunk i's
+                    # paragraph mask
+                    pending = (self._dispatch_front_device(chunks[i + 1])
+                               if i + 1 < len(chunks) else None)
+                    with self._track('pull_para_bits'):
+                        para = bits.result()
+                    states.put(('ok', self._dispatch_chunk_device(
+                        n_pages, mono_dev, para_dev, para)))
+            except BaseException as exc:       # raised on the caller
+                states.put(('err', exc))
+
+        thread = threading.Thread(target=dispatcher, daemon=True,
+                                  name='ocr-dispatcher')
+        thread.start()
+        results = []
+        for _ in chunks:
+            kind, state = states.get()
+            if kind == 'err':
+                raise state
+            results.extend(self._collect_chunk_device(state))
+        thread.join()
         return results

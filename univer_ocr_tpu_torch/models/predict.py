@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..weights import load_checkpoint
 from .bucketing import make_divisible_by
 from .pipeline import OCRPipeline
 
@@ -44,7 +45,8 @@ def predict(path, out_dir=DEFAULT_OUT, device=None, collapse_runs=False):
     Returns the [paragraph][line] text list."""
     page, image = load_page(path)
     page = make_divisible_by(page, 16, 16)
-    with OCRPipeline(page.shape, chunk=1, device=device,
+    with OCRPipeline(page.shape, weights=load_checkpoint(device=device),
+                     chunk=1, device=device,
                      collapse_runs=collapse_runs) as pipeline:
         text = pipeline.ocr_pages([page])[0]
     out_dir = Path(out_dir)

@@ -1,9 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-At first use, ONE `nvcc` command compiles every `univer_ocr_tpu_torch/
-csrc/*.cu` into a shared library with a plain C interface, and `ctypes`
-loads it.  No PyTorch headers and no pybind11 are involved, so the build
-takes seconds.  The library lands in `build/kernels/` at the root of the
+At first use, one `nvcc` per `univer_ocr_tpu_torch/csrc/*.cu`, all
+started together, compiles the sources, one more links them into a shared
+library with a plain C interface, and `ctypes` loads it.  No PyTorch
+headers and no pybind11 are involved, so the build takes seconds.  The library lands in `build/kernels/` at the root of the
 checkout (git-ignored), named by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is.
 
@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,11 +26,14 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 #: launches of each kernel by its wrapper, keyed by kernel name; a wrapper
-#: adds one where it launches its kernel and nowhere else
+#: adds one where it launches its kernel and nowhere else, holding
+#: COUNT_LOCK (the pipelines launch from several threads at once)
 LAUNCHES = collections.Counter()
+COUNT_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc():
@@ -52,27 +56,49 @@ def library_path():
     return BUILD_DIR / f'libuocr_kernels_{digest.hexdigest()[:16]}.so'
 
 
+def _run(cmds):
+    """Run the commands side by side; returns their (returncode, output)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    return [(proc.returncode, out.strip()) for proc, out in zip(procs, outs)]
+
+
 def build():
     """Compile the kernels unless a library of these exact sources exists.
     Returns {'path', 'seconds', 'log'}; `log` holds nvcc's -Xptxas -v
     report (registers, shared memory and spills of each kernel)."""
-    path = library_path()
-    if path.exists():
-        return {'path': path, 'seconds': 0.0, 'log': 'cached'}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}) after '
-                           f'{seconds:.1f} s: {" ".join(cmd)}\n{log}')
-    os.replace(tmp, path)
-    print(f'kernels: built {path.name} in {seconds:.1f} s with: '
-          f'{" ".join(cmd)}\n{log}', flush=True)
-    return {'path': path, 'seconds': seconds, 'log': log}
+    with _BUILD_LOCK:
+        path = library_path()
+        if path.exists():
+            return {'path': path, 'seconds': 0.0, 'log': 'cached'}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+        objects = [tmp.with_name(f'{tmp.name}.{src.stem}.o')
+                   for src in sources()]
+        compile_cmds = [[_nvcc(), *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+                        for src, obj in zip(sources(), objects)]
+        link_cmd = [_nvcc(), *NVCC_FLAGS[:2], '-shared', '-o', str(tmp),
+                    *map(str, objects)]
+        t0 = time.perf_counter()
+        try:
+            results = _run(compile_cmds)
+            if all(code == 0 for code, _ in results):
+                results.append(_run([link_cmd])[0])
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
+        log = '\n'.join(out for _, out in results if out)
+        for cmd, (code, _) in zip(compile_cmds + [link_cmd], results):
+            if code != 0:
+                raise RuntimeError(f'nvcc failed ({code}) after '
+                                   f'{seconds:.1f} s: {" ".join(cmd)}\n{log}')
+        os.replace(tmp, path)
+        print(f'kernels: built {path.name} in {seconds:.1f} s, '
+              f'{len(compile_cmds)} sources side by side:\n{log}', flush=True)
+        return {'path': path, 'seconds': seconds, 'log': log}
 
 
 @functools.lru_cache(maxsize=1)

@@ -223,6 +223,7 @@ def fused_char_head(x, head):
                   arrived.data_ptr(), out.data_ptr(), N, W, head.n_out,
                   stream)
     _build.check(code, NAME)
-    _build.LAUNCHES[NAME] += 1
-    WIDTH_LAUNCHES[W] += 1
+    with _build.COUNT_LOCK:
+        _build.LAUNCHES[NAME] += 1
+        WIDTH_LAUNCHES[W] += 1
     return out

@@ -93,5 +93,6 @@ def fused_monochrome(x, weights):
         code = fn(x.data_ptr(), weights.packed.ctypes.data, out.data_ptr(),
                   B, H, W, stream)
     _build.check(code, NAME)
-    _build.LAUNCHES[NAME] += 1
+    with _build.COUNT_LOCK:
+        _build.LAUNCHES[NAME] += 1
     return out
