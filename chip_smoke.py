@@ -21,19 +21,28 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            exact_bands=True`, sampler 'gather') on the same pages, its
            text held against the JAX device cascade's text stored in the
            fixture; both kernels must have launched
+  tables_path
+           the device cascade in its tables mode (`exact_bands=False`,
+           sampler 'twopass', `fused_tail=False`) on the same pages, its
+           text held against the JAX tables mode's text stored in the
+           fixture; both kernels must have launched; prints the
+           escalation counters and the host syncs per paragraph launch
   times    CUDA-event times of each kernel and its plain version at the
            paths' shapes (the Char head at every width each path
            launched) beside their bounds; the JAX device cascade's Char
            head, the width-8 convolution form, beside fused_char_head at
            the device path's line-stage shape (64 lines, 32 rows, W), the
            measurement behind the port's choice of the kernel there;
-           pages/s of both cascades in 'highest' and
-           'bf16' (printed, not gated) with each run's stage timers
-           (OCRPipeline.timers) per chunk, the 'bf16' text held against
-           the 'highest' JAX text at JAX's own bar (similarity > 0.9,
-           tests/test_pipeline.py); and one torch.profiler window over a
-           chunk of each cascade: the device's busy share of the window
-           and its top kernels by device time
+           pages/s of the host cascade and of both device modes in
+           'highest' and 'bf16' (printed, not gated) with each run's
+           stage timers (OCRPipeline.timers) per chunk and, in the tables
+           mode, its host syncs per paragraph launch; the 'bf16' text
+           held against the 'highest' JAX text at JAX's own bar
+           (similarity > 0.9, tests/test_pipeline.py); and one
+           torch.profiler window over a chunk of each: the device's busy
+           share of the window and its top kernels by device time; and
+           for both device modes, every sync of one chunk as torch's
+           sync debug mode reports it, by line and per paragraph launch
 
 Bounds: the larger of the bytes (each input read once, each output
 written once) over the HBM rate and the work over the peak rate of the
@@ -43,12 +52,13 @@ tensor cores, so its `bound_ms` is three TF32 products at 495 TFLOP/s;
 (the bound of the FFMA kernel it replaced).  The Monochrome block has no
 tensor-core shape: both its bounds are FFMA.
 
-The device path is this slice's main path: each kernel's `launches` in the
+The tables path is this slice's main path: each kernel's `launches` in the
 last JSON lines is its count on that path's run, and the Char head's times
 there are means per launch over that run's width mix (`WIDTH_LAUNCHES`),
 with each width's own numbers beside them.  `launches_by_path` gives each
 path's count (each path's run starts with the counts at 0), and the Char
-head's `host_path` entry its times over the host path's mix.  Plain
+head's `host_path` and `device_path` entries its times over those paths'
+mixes.  Plain
 versions run with TF32 off (full float32).
 
 Any failure ends the run with a traceback and a non-zero exit before the
@@ -81,6 +91,9 @@ TEXT_SIMILARITY = 0.99
 BF16_SIMILARITY = 0.9
 #: the device cascade's parity mode
 DEVICE_CASCADE = dict(device_cascade=True, exact_bands=True)
+#: its tables mode, without the fused tail (not ported)
+TABLES_MODE = dict(device_cascade=True, exact_bands=False, sampler='twopass',
+                   fused_tail=False)
 #: timed runs of each pipeline, after one warm-up run
 REPS = 3
 MONO_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_pallas.py bars
@@ -190,6 +203,13 @@ def counted_run(pipeline, pages):
             dict(sorted(char_head.WIDTH_LAUNCHES.items())))
 
 
+def syncs_per_launch(counts):
+    """Host syncs per paragraph launch of the tables mode, from
+    OCRPipeline.host_syncs (one 'suspect_check' per launch)."""
+    launches = counts.get('suspect_check', 0)
+    return sum(counts.values()) / launches if launches else None
+
+
 def timed_runs(pipeline, pages, label, expected):
     """pages/s over REPS runs after a warm one, with the stage timers on
     for the timed runs.  The warm run's text is held against `expected`,
@@ -217,11 +237,17 @@ def timed_runs(pipeline, pages, label, expected):
         check_text(label, results, expected)
     pipeline.timers = StageTimers()
     pipeline.timeline.clear()
+    pipeline.host_syncs.clear()
     t0 = time.perf_counter()
     for _ in range(REPS):
         pipeline.ocr_pages(pages)
     torch.cuda.synchronize()
     chunk_s = (time.perf_counter() - t0) / REPS
+    syncs = pipeline.host_syncs
+    if syncs:
+        print(f'  {label}: host syncs {dict(syncs)} over {REPS} chunks, '
+              f'{syncs_per_launch(syncs):.3f} per paragraph launch',
+              flush=True)
     stages = {name: round(1e3 * total / REPS, 3)
               for name, total in sorted(pipeline.timers.totals.items())}
     pipeline.timers = None
@@ -230,6 +256,42 @@ def timed_runs(pipeline, pages, label, expected):
     print(f'  {label} stage timers, ms per chunk (summed over threads): '
           f'{json.dumps(stages)}', flush=True)
     return CHUNK / chunk_s, stages
+
+
+def sync_census(pipeline, pages, label):
+    """Every sync one chunk makes, as torch's sync debug mode reports it
+    (a copy from pageable host memory, a read of a device value, ...),
+    counted by the line that made it and per paragraph launch (the
+    'bands' pulls of the timeline), beside what pipeline.host_syncs
+    counted in the same run."""
+    import warnings
+    from univer_ocr_tpu_torch.utils.profiling import StageTimers
+    pipeline.timers = StageTimers()
+    pipeline.timeline.clear()
+    pipeline.host_syncs.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            pipeline.ocr_pages(pages)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = sum(tag == 'bands' for tag, *_ in pipeline.timeline)
+    pipeline.timers = None
+    where = {}
+    for w in caught:
+        if 'synchroniz' in str(w.message):
+            key = f'{Path(w.filename).name}:{w.lineno}'
+            where[key] = where.get(key, 0) + 1
+    total = sum(where.values())
+    print(f'  {label} syncs over one chunk (torch sync debug mode): {total} '
+          f'in {launches} paragraph launches, '
+          f'{total / max(launches, 1):.3f} per launch; host_syncs '
+          f'{dict(pipeline.host_syncs)}; by line '
+          f'{json.dumps(dict(sorted(where.items(), key=lambda kv: -kv[1])))}',
+          flush=True)
+    return total, launches
 
 
 def profile_window(pipeline, pages, label):
@@ -345,6 +407,7 @@ def main():
         fixture_pages = f['pages']
         expected = json.loads(str(f['texts']))
         expected_device = json.loads(str(f['device_texts']))
+        expected_tables = json.loads(str(f['tables_texts']))
     pages = [fixture_pages[i % len(fixture_pages)][None, :, :, None]
              for i in range(CHUNK)]
 
@@ -355,7 +418,8 @@ def main():
 
     launches = {}
     with pipeline('highest') as host, \
-            pipeline('highest', **DEVICE_CASCADE) as device:
+            pipeline('highest', **DEVICE_CASCADE) as device, \
+            pipeline('highest', **TABLES_MODE) as tables:
         with phase('path'):
             results, launches['path'], widths = counted_run(host, pages)
             print(f'path launches: {launches["path"]}; fused_char_head by '
@@ -376,6 +440,23 @@ def main():
                     raise AssertionError(f'{name} did not launch on the '
                                          f'device path')
 
+        with phase('tables_path'):
+            tables.host_syncs.clear()
+            results, launches['tables_path'], table_widths = counted_run(
+                tables, pages)
+            print(f'tables_path launches: {launches["tables_path"]}; '
+                  f'fused_char_head by width: {table_widths}', flush=True)
+            print(f'tables_path escalation_stats: '
+                  f'{json.dumps(tables.escalation_stats)}', flush=True)
+            print(f'tables_path host syncs: {dict(tables.host_syncs)}, '
+                  f'{syncs_per_launch(tables.host_syncs)} per paragraph '
+                  f'launch', flush=True)
+            check_text('tables_path', results, expected_tables)
+            for name in ('fused_monochrome', 'fused_char_head'):
+                if launches['tables_path'].get(name, 0) < 1:
+                    raise AssertionError(f'{name} did not launch on the '
+                                         f'tables path')
+
         with phase('times'), backend_flags('highest'):
             print(f'times on: {card}', flush=True)
             x = torch.tensor(rng.random((CHUNK,) + PAGE_SHAPE[1:],
@@ -393,8 +474,10 @@ def main():
             mono['bound_ffma_ms'] = mono['bound_ms']
             print(f'  fused_monochrome {mono}', flush=True)
             chars = {}
-            for n, width in sorted({(HOST_LINES, w) for w in widths}
-                                   | {(DEVICE_LINES, w) for w in line_widths}):
+            for n, width in sorted(
+                    {(HOST_LINES, w) for w in widths}
+                    | {(DEVICE_LINES, w)
+                       for w in set(line_widths) | set(table_widths)}):
                 xc = char_inputs(params, rng, n, width)
                 cols = xc.shape[0] * xc.shape[1]
                 t = {
@@ -415,7 +498,7 @@ def main():
                 print(f'  fused_char_head {t}', flush=True)
             # the JAX device cascade's Char head (the width-8 convolution
             # form) beside the kernel at the line stage's shape
-            for width, n in line_widths.items():
+            for width, n in table_widths.items():
                 xc = char_inputs(params, rng, DEVICE_LINES, width)
                 t = {'launches': n, 'shape': list(xc.shape),
                      'fused_char_head_ms': chars[DEVICE_LINES, width]['ms'],
@@ -430,17 +513,23 @@ def main():
                                                 expected),
                      'device highest': timed_runs(device, pages,
                                                   'device highest',
-                                                  expected_device)}
+                                                  expected_device),
+                     'tables highest': timed_runs(tables, pages,
+                                                  'tables highest',
+                                                  expected_tables)}
             for label, kwargs, highest in (
                     ('host bf16', {}, expected),
-                    ('device bf16', DEVICE_CASCADE, expected_device)):
+                    ('device bf16', DEVICE_CASCADE, expected_device),
+                    ('tables bf16', TABLES_MODE, expected_tables)):
                 with pipeline('bf16', **kwargs) as pl:
                     rates[label] = timed_runs(pl, pages, label, highest)
             print('pages/s ' + json.dumps(
-                {label: round(r[0], 4) for label, r in rates.items()}),
-                flush=True)
-            for label, pl in (('host', host), ('device', device)):
+                {label: r[0] for label, r in rates.items()}), flush=True)
+            for label, pl in (('host', host), ('device', device),
+                              ('tables', tables)):
                 profile_window(pl, pages, label)
+            for label, pl in (('device', device), ('tables', tables)):
+                sync_census(pl, pages, label)
 
     def char_mix(n_lines, mix, label):
         """The Char head per launch over one path's width mix."""
@@ -462,7 +551,8 @@ def main():
               f'{out["bound_ffma_ms"] * total:.4f} ms FFMA bound', flush=True)
         return out
 
-    char = char_mix(DEVICE_LINES, line_widths, 'device path')
+    char = char_mix(DEVICE_LINES, table_widths, 'tables path')
+    device_char = char_mix(DEVICE_LINES, line_widths, 'device path')
     host_char = char_mix(HOST_LINES, widths, 'host path')
     by_path = {name: {path: counts.get(name, 0)
                       for path, counts in launches.items()}
@@ -474,7 +564,7 @@ def main():
         {'name': 'fused_monochrome', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/fused_monochrome.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/fused_conv.py:87',
-         'launches': by_path['fused_monochrome']['device_path'],
+         'launches': by_path['fused_monochrome']['tables_path'],
          'launches_by_path': by_path['fused_monochrome'],
          'max_abs_err': errors['fused_monochrome'],
          'ms': mono['ms'], 'plain_ms': mono['plain_ms'],
@@ -483,13 +573,14 @@ def main():
         {'name': 'fused_char_head', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/char_head.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/char_head.py:61',
-         'launches': by_path['fused_char_head']['device_path'],
+         'launches': by_path['fused_char_head']['tables_path'],
          'launches_by_path': by_path['fused_char_head'],
          'max_abs_err': errors['fused_char_head'],
          'ms': char['ms'], 'plain_ms': char['plain_ms'],
          'bound_ms': char['bound_ms'], 'bound_by': char['bound_by'],
          'bound_ffma_ms': char['bound_ffma_ms'], 'library_ms': None,
-         'widths': char['widths'], 'host_path': host_char},
+         'widths': char['widths'], 'device_path': device_char,
+         'host_path': host_char},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

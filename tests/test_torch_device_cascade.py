@@ -9,7 +9,14 @@ geometry (affines, plans, line plans) and the unpacked plan columns must
 be equal.  The band masks are thresholds of float32 sums, so a pixel may
 differ only where the JAX prediction lies within 1e-5 of its threshold.
 The port moves masks as bytes where JAX bit-packs them: blobs go to JAX
-packed and to the port as bytes, and masks are compared unpacked."""
+packed and to the port as bytes, and masks are compared unpacked.
+
+The tables mode (exact_bands=False, sampler 'twopass'): the two-pass
+crops at 1e-6 against JAX run op by op (tests/test_torch_band_tables.py
+says why), the tables payload equal byte for byte once the band masks
+are (they may differ only where the prediction is within 1e-5 of its
+threshold), and the host planners' plans and escalation decisions
+equal."""
 
 import json
 
@@ -227,7 +234,8 @@ def test_zoomed_line_crops_equal_jax_one_hot_form(rotation, precision):
     np.testing.assert_array_equal(got.numpy(), exp)
 
 
-#: JAX's paragraph-plan fields that only its tables mode reads (A4b)
+#: JAX's paragraph-plan fields that only its labeled and fused stages
+#: read (ROADMAP A5, A6)
 TABLES_FIELDS = {'start_y', 'start_x'}
 
 
@@ -395,3 +403,254 @@ def test_paragraph_plans_equal_jax(pipelines):
         np.testing.assert_array_equal(np.packbits(g.pop('blob'), axis=1),
                                       e.pop('blob'))
         assert g == e
+
+
+# ---------------------------------------------------------------------------
+# The tables mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope='module')
+def tables_pipelines():
+    jax_pipeline = JaxPipeline(PAGE_SHAPE, chunk=1, workers=1,
+                               device_cascade=True, fused_tail=False,
+                               use_pallas=False)
+    with OCRPipeline(PAGE_SHAPE, chunk=1, workers=1, device='cpu',
+                     device_cascade=True, fused_tail=False) as port:
+        assert port.band_tables and port.sampler == 'twopass'
+        yield jax_pipeline, port
+
+
+@pytest.mark.parametrize('precision', ['highest', 'bf16'])
+def test_paragraph_stages_tables_mode_match_jax(params, precision):
+    """Both paragraph stages with tables=True and the two-pass sampler:
+    the sheared crops at 1e-6, the band masks equal but at threshold
+    ties, and the payload: the port's tables of JAX's bands equal JAX's
+    payload byte for byte, and the port's payload is its tables of its
+    own bands."""
+    from univer_ocr_tpu_torch.models import band_tables as tbt
+    params_j, params_t = params
+    rs = np.random.RandomState(13)
+    pages = ndimage.uniform_filter(rs.rand(2, 96, 128, 1), (0, 5, 9, 0))
+    pages = (pages > 0.5).astype(np.float32)
+    hb, wb = 128, 160
+    blob = _blob(96, 128, 3.5)
+    buf, args, (out_h, out_w) = _crop_args(blob, hb, wb, pad=(2, 4))
+    hv = np.asarray([out_h + 16 - out_h % 16], np.int32)
+    wv = np.asarray([out_w + 16 - out_w % 16], np.int32)
+    para = np.zeros((2, 96, 128, 1), np.float32)
+    para[1, :, :, 0] = blob
+    cols = _i32(1) + args + [hv, wv]
+    kwargs = dict(precision=precision, tables=True, sampler='twopass')
+    crop_fns = (
+        (lambda: tdc.twopass_paragraph_crops(
+            *_torch([pages, buf[None]] + cols[:-2]), precision=precision),
+         lambda: jdc.twopass_paragraph_crops(
+            *_jax([pages, np.packbits(buf, axis=1)[None]] + cols[:-2]),
+            precision=precision)),
+        (lambda: tdc.twopass_paragraph_crops_resident(
+            *_torch([pages, para] + cols[:-2]), hb, wb, precision=precision),
+         lambda: jdc.twopass_paragraph_crops_resident(
+            *_jax([pages, para] + cols[:-2]), hb, wb, precision=precision)))
+    stages = (
+        (lambda: tdc.paragraph_stage(
+            params_t, *_torch([pages, buf[None]] + cols), **kwargs),
+         lambda: jdc.paragraph_stage(
+            params_j, *_jax([pages, np.packbits(buf, axis=1)[None]] + cols),
+            **kwargs)),
+        (lambda: tdc.paragraph_stage_rot_resident(
+            params_t, *_torch([pages, para] + cols), hb, wb, **kwargs),
+         lambda: jdc.paragraph_stage_rot_resident(
+            params_j, *_jax([pages, para] + cols), hb, wb, **kwargs)))
+    for (crop_t, crop_j), (stage_t, stage_j) in zip(crop_fns, stages):
+        crops_t, crops_j = crop_t(), np.asarray(crop_j())
+        assert np.abs(crops_t.numpy() - crops_j).max() <= 1e-6
+        sheared, payload = stage_t()
+        sheared_j, payload_j = stage_j()
+        bands = tdc._thresholded_bands(params_t, crops_t, _torch([hv])[0],
+                                       _torch([wv])[0], precision=precision)
+        bands_j = _assert_bands_match(
+            bands.numpy(), lambda: np.asarray(jdc._thresholded_bands(
+                params_j, jnp.asarray(crops_j), jnp.asarray(hv),
+                jnp.asarray(wv), precision=precision)),
+            params_j, crops_j, hv, wv, precision)
+        assert bands_j.sum() > 0
+        crops_of_j, *state_j = tbt.tables_state(
+            torch.from_numpy(np.array(bands_j)),
+            torch.from_numpy(np.array(crops_j)))
+        np.testing.assert_array_equal(
+            tbt.pack_tables_payload(*state_j).numpy(), np.asarray(payload_j))
+        np.testing.assert_allclose(crops_of_j.numpy(), np.asarray(sheared_j),
+                                   rtol=0, atol=1e-6)
+        crops_of_t, *state_t = tbt.tables_state(bands, crops_t)
+        assert torch.equal(tbt.pack_tables_payload(*state_t), payload)
+        assert torch.equal(crops_of_t, sheared)
+
+
+def test_paragraph_plans_twopass_equal_jax(tables_pipelines):
+    """The analytic rotated bbox, the rot90-fold bucket rule and the shear
+    margin: plans equal field for field, menus included, at angles on
+    both sides of 45 degrees."""
+    jax_pipeline, port = tables_pipelines
+    page = np.zeros((96, 128), np.uint8)
+    page[2:12, 8:120] = 1                                  # level
+    for angle, where in ((12.0, (slice(10, 60), slice(0, 70))),
+                         (80.0, (slice(40, 96), slice(60, 128)))):
+        blob = _blob(50 if angle == 12.0 else 56, 70 if angle == 12.0 else 68,
+                     angle)
+        page[where][blob] = 1
+    got = port._page_paragraph_plans(2, page)
+    exp = jax_pipeline._page_paragraph_plans(2, page)
+    assert len(got) == len(exp) >= 3
+    assert sum(p['rotated'] for p in got) >= 2
+    assert any(abs(p['sin']) > abs(p['cos']) for p in got)
+    for g, e in zip(got, exp):
+        g = dict(g)
+        e = {k: v for k, v in e.items() if k not in TABLES_FIELDS}
+        np.testing.assert_array_equal(np.packbits(g.pop('blob'), axis=1),
+                                      e.pop('blob'))
+        assert g == e
+    for shape in ((30, 200), (100, 240), (120, 250), (300, 10)):
+        for margin in (False, True):
+            assert (port._line_menu_shape(*shape, shear_margin=margin)
+                    == jax_pipeline._line_menu_shape(*shape,
+                                                     shear_margin=margin))
+
+
+def _tables_of(bands):
+    from univer_ocr_tpu.models.device_cascade import band_blob_tables_host
+    return band_blob_tables_host(bands)[:2]
+
+
+@pytest.mark.parametrize('case', ['level', 'upside_down', 'vertical',
+                                  'fragments', 'overflow'])
+def test_table_planner_equals_jax(tables_pipelines, case):
+    """_plan_lines_from_tables on each axis and on the one JAX's host
+    planner chooses, _cross_axis_escalation, and the fragment-merging
+    pairing on the masks' blobs."""
+    jax_pipeline, port = tables_pipelines
+    lines = [(6, 9, 10, 150), (22, 25, 12, 120), (38, 41, 8, 160)]
+    if case == 'overflow':
+        bands = np.zeros((220, 40, 2), bool)
+        bands[::4, 4:36, 0] = True
+        bands[1::4, 4:36, 1] = True
+    else:
+        bands = {
+            'level': lambda: _band_pair((64, 176), lines),
+            'upside_down': lambda: _band_pair((64, 176), lines)[::-1, ::-1,
+                                                                ::-1],
+            'vertical': lambda: _band_pair((176, 64), lines, vertical=True),
+            'fragments': lambda: _band_pair((64, 176), lines,
+                                            fragments=True),
+        }[case]()
+    bands = np.ascontiguousarray(bands)
+    from univer_ocr_tpu.models.device_cascade import choose_stacking_axis_host
+    tbl, nb = _tables_of(bands[None])
+    chosen = int(choose_stacking_axis_host(tbl, nb)[0])
+    got = port._plan_lines_from_tables(tbl[0], nb[0], chosen)
+    assert got == jax_pipeline._plan_lines_from_tables(tbl[0], nb[0])
+    assert len(got) > 0
+    for axis in (0, 1):
+        assert (port._plan_lines_from_tables(tbl[0], nb[0], axis)
+                == jax_pipeline._plan_lines_from_tables(tbl[0], nb[0], axis))
+        assert (port._cross_axis_escalation(tbl[0], nb[0], axis)
+                == jax_pipeline._cross_axis_escalation(tbl[0], nb[0], axis))
+    stats = [port._band_blob_stats(bands[:, :, c]) for c in (0, 1)]
+    merged = port._plans_from_bboxes(*port._pair_lines(
+        *stats[0], *stats[1], merge_fragments=True))
+    assert merged == jax_pipeline._plan_lines(bands, merge_fragments=True)
+
+
+def test_profile_planner_and_merge_equal_jax(tables_pipelines):
+    """tests/test_band_tables.py's staggered lines: cross-axis escalation
+    fires and the profile planner separates the two lines, as in JAX, in
+    both view orientations; and the fragment merge of line bboxes."""
+    from univer_ocr_tpu.models.device_cascade import suspect_profile_host
+    jax_pipeline, port = tables_pipelines
+    H, W = 64, 256
+    bands = np.zeros((1, H, W, 2), bool)
+    bands[0, 10:14, 4:100, 0] = True
+    bands[0, 18:22, 4:100, 1] = True
+    bands[0, 14:18, 150:250, 0] = True
+    bands[0, 22:26, 150:250, 1] = True
+    for axis, view in ((0, bands), (1, bands.transpose(0, 2, 1, 3))):
+        hb, wb = (H, W) if axis == 0 else (W, H)
+        _, prof = suspect_profile_host(
+            bands if axis == 0 else np.ascontiguousarray(view))
+        packed = np.packbits(prof[0].reshape(prof.shape[1], -1).astype(
+            np.uint8), axis=1)
+        got = port._plan_lines_from_profile(packed, axis, hb, wb)
+        assert got == jax_pipeline._plan_lines_from_profile(packed, axis,
+                                                            hb, wb)
+        if axis == 0:
+            assert len(got) == 2
+    tbl, nb = _tables_of(bands)
+    assert port._cross_axis_escalation(tbl[0], nb[0], 0)
+    s = slice
+    for bboxes, picks in (
+            ([(s(10, 30), s(5, 60)), (s(10, 30), s(70, 120))], [0, 0]),
+            ([(s(10, 30), s(5, 60)), (s(10, 30), s(70, 120))], [0, 1]),
+            ([(s(10, 30), s(5, 60)), (s(40, 60), s(5, 60)),
+              (s(12, 28), s(62, 90))], [1, 0, 1])):
+        assert (port._merge_line_bboxes(bboxes, picks)
+                == JaxPipeline._merge_line_bboxes(bboxes, picks, None))
+
+
+@pytest.mark.parametrize('escalation', [True, False])
+def test_launch_planner_escalates_like_jax(tables_pipelines, escalation):
+    """One launch's payload holding a merge suspect (JAX's tables_state
+    without the device resolve), side-by-side lines and a level paragraph: the
+    port's launch planner takes JAX's planner for each paragraph (profile
+    for the flagged ones when escalation is on, tables otherwise) and
+    counts them as JAX's handle_launch does."""
+    from concurrent.futures import Future
+    jax_pipeline, port = tables_pipelines
+    H, W = 96, 256
+    bands = np.zeros((3, H, W, 2), bool)
+    bands[0, 4:11, 5:60, 0] = True         # merge suspect: lines chained
+    bands[0, 20:27, 5:60, 0] = True        # through a staggered bridge
+    bands[0, 8:23, 80:140, 0] = True
+    bands[0, 12:19, 5:60, 1] = True
+    bands[0, 28:35, 5:60, 1] = True
+    bands[0, 16:31, 80:140, 1] = True
+    bands[1, 10:14, 4:100, 0] = True       # side by side
+    bands[1, 18:22, 4:100, 1] = True
+    bands[1, 14:18, 150:250, 0] = True
+    bands[1, 22:26, 150:250, 1] = True
+    bands[2, 10:16, 10:150, 0] = True      # level
+    bands[2, 20:26, 10:150, 1] = True
+    crops = np.zeros((3, H, W, 1), np.float32)
+    _, *state = jdc.tables_state(bands, crops, margin=True,
+                                 resolve_suspects=False)
+    payload = np.asarray(jdc.pack_tables_payload(*state))
+    fut = Future()
+    fut.set_result(payload)
+    plans = [{'menu': (H, W)}] * 3
+    port.escalation = escalation
+    port.escalation_stats = dict.fromkeys(port.escalation_stats, 0)
+    try:
+        flat = port._plan_launch_from_tables([0, 1, 2], plans, fut)
+    finally:
+        port.escalation = True
+    tables, n_blobs, _, axes, suspects, profiles = (
+        jdc.unpack_tables_payload(payload))
+    assert list(suspects) == [True, False, False]
+    expected, stats = [], {'paragraphs': 3, 'suspect': 0, 'cross_axis': 0}
+    for bi in range(3):
+        ax = int(axes[bi])
+        escalate = bool(suspects[bi])
+        if escalate:
+            stats['suspect'] += 1
+        elif jax_pipeline._cross_axis_escalation(tables[bi], n_blobs[bi], ax):
+            stats['cross_axis'] += 1
+            escalate = True
+        if escalate and escalation:
+            lps = jax_pipeline._plan_lines_from_profile(profiles[bi], ax,
+                                                        H, W)
+        else:
+            lps = jax_pipeline._plan_lines_from_tables(tables[bi],
+                                                       n_blobs[bi], ax)
+        expected.extend((bi, lp) for lp in lps)
+    assert stats == {'paragraphs': 3, 'suspect': 1, 'cross_axis': 1}
+    assert port.escalation_stats == stats
+    assert flat == expected

@@ -1,8 +1,9 @@
 """The port's OCRPipeline in the device cascade's parity mode
-(`device_cascade=True, exact_bands=True`, sampler 'gather') against the
-JAX package's, and what came with this mode: stage timers, the plain
-versions in the pipeline's precision on the CPU, random initialisation and
-the TF32 switches across threads.
+(`device_cascade=True, exact_bands=True`, sampler 'gather') and tables
+mode (`exact_bands=False`, sampler 'twopass', `fused_tail=False`) against
+the JAX package's, and what came with these modes: stage timers, the
+escalation counters, the plain versions in the pipeline's precision on
+the CPU, random initialisation and the TF32 switches across threads.
 
 Text is compared by the flip budget of tests/test_pipeline.py (test
 `test_device_cascade_matches_host_pipeline`): the same structure (pages,
@@ -11,8 +12,11 @@ characters, and at most max(8, len // 200) differing characters a page.
 Float32 sums in another order can flip a pixel that sits on a threshold;
 each such flip perturbs a column or two of one line.  Measured on the CPU
 (4 fixture pages): the port's text equals the JAX text exactly, in both
-cascades and both precisions, and the device cascade's text equals the
-port's host cascade with unquantized transfers exactly."""
+cascades, both device modes (and the two mixed combinations of
+`exact_bands` and sampler) and both precisions, and the device cascade's
+text equals the port's host cascade with unquantized transfers exactly.
+The tables mode's text is held to exact equality with the JAX text in
+the fixture (`tables_texts`), as measured."""
 
 import json
 import threading
@@ -40,6 +44,8 @@ DEVICE_STAGES = {'pull_para_bits', 'host_paragraph_plans',
                  'dispatch_paragraph_stage', 'pull_band_masks',
                  'host_line_plans', 'dispatch_line_stage', 'pull_char_ids',
                  'decode_text'}
+#: the tables mode's: the payload pull replaces the band-mask pull
+TABLES_STAGES = DEVICE_STAGES - {'pull_band_masks'} | {'pull_band_tables'}
 #: the host cascade's, named after its device stages where it has them
 HOST_STAGES = {'pull_front', 'host_paragraph_crops', 'line_masks',
                'host_line_crops', 'char_ids', 'decode_text'}
@@ -90,6 +96,77 @@ def device_run(weights, pages):
         return texts, pipeline.timers, pipeline.timeline
 
 
+@pytest.fixture(scope='module')
+def tables_run(weights, pages):
+    """The tables mode on the fixture pages, chunk 2, 'highest', with its
+    stage timers on: (texts, timers, timeline, escalation_stats,
+    host_syncs)."""
+    with _port(weights, device_cascade=True, fused_tail=False) as pipeline:
+        assert pipeline.band_tables and pipeline.sampler == 'twopass'
+        pipeline.timers = StageTimers()
+        texts = pipeline.ocr_pages(pages)
+        return (texts, pipeline.timers, pipeline.timeline,
+                pipeline.escalation_stats, pipeline.host_syncs)
+
+
+def test_tables_mode_matches_jax_tables_text(tables_run):
+    """Against the JAX tables mode's text stored in the fixture: equal."""
+    _, expected = load_fixture('tables_texts')
+    got = tables_run[0]
+    assert sum(len(lines) for page in got for lines in page) > 0
+    assert got == expected
+
+
+def test_tables_mode_stage_timers_and_counters(tables_run):
+    """The payload pull is timed where the band-mask pull was; every
+    paragraph is counted by the escalation counters (JAX's counts on
+    these pages: 32 paragraphs, no suspect, no cross-axis escalation);
+    each paragraph launch counts one suspect check among its syncs."""
+    texts, timers, timeline, stats, syncs = tables_run
+    summary = timers.summary()
+    assert set(summary) == TABLES_STAGES
+    assert summary['pull_para_bits']['count'] == N_PAGES // 2
+    assert {tag for tag, *_ in timeline} == {'para_bits', 'bands',
+                                             'char_ids'}
+    assert stats == {'paragraphs': sum(len(page) for page in texts),
+                     'suspect': 0, 'cross_axis': 0}
+    assert stats['paragraphs'] == 32
+    launches = sum(tag == 'bands' for tag, *_ in timeline)
+    assert launches > 0 and syncs['suspect_check'] == launches
+    assert set(syncs) <= {'suspect_check', 'grid_ccl_block'}
+
+
+def test_tables_mode_without_escalation(weights, pages):
+    """escalation=False plans every paragraph from its tables; no
+    escalation fires on these pages, so the text is the same."""
+    _, expected = load_fixture('tables_texts')
+    with _port(weights, device_cascade=True, fused_tail=False,
+               escalation=False) as pipeline:
+        assert pipeline.ocr_pages(pages[:2]) == expected[:2]
+        assert pipeline.escalation_stats['paragraphs'] == sum(
+            len(page) for page in expected[:2])
+
+
+@pytest.mark.parametrize('exact_bands,sampler', [(False, 'gather'),
+                                                 (True, 'twopass')])
+def test_mixed_mode_combinations_match_jax(weights, pages, exact_bands,
+                                           sampler):
+    """The two combinations of `exact_bands` and sampler the fixture does
+    not hold, on one page against the JAX package's."""
+    kwargs = dict(device_cascade=True, exact_bands=exact_bands,
+                  sampler=sampler, fused_tail=False)
+    jax_pipeline = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2,
+                               workers=2, collapse_runs=4,
+                               precision='highest', use_pallas=False,
+                               **kwargs)
+    expected = jax_pipeline.ocr_pages(pages[:1])
+    with _port(weights, **kwargs) as pipeline:
+        got = pipeline.ocr_pages(pages[:1])
+        assert pipeline.escalation_stats == jax_pipeline.escalation_stats
+    assert sum(len(lines) for page in got for lines in page) > 0
+    assert_within_flip_budget(got, expected)
+
+
 def test_device_cascade_matches_jax_device_cascade(device_run):
     """Against the JAX device cascade's text stored in the fixture
     (exact_bands=True, 'highest', collapse_runs=4, on the CPU)."""
@@ -129,18 +206,21 @@ def test_host_cascade_stage_timers(weights, pages):
         assert host.timeline == []
 
 
-@pytest.mark.parametrize('cascade', ['host', 'device'])
+@pytest.mark.parametrize('cascade', ['host', 'device', 'tables'])
 def test_bf16_matches_jax_plain_bf16(weights, pages, cascade):
     """'bf16' against JAX `use_pallas=False` 'bf16' (bf16 operands, float32
-    sums in both), on two fixture pages."""
-    device = cascade == 'device'
-    kwargs = dict(device_cascade=device, exact_bands=device)
-    expected = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2, workers=2,
-                           collapse_runs=4, precision='bf16',
-                           use_pallas=False, **kwargs).ocr_pages(pages[:2])
+    sums in both), on two fixture pages; in the tables mode the escalation
+    counters too."""
+    kwargs = dict(device_cascade=cascade != 'host',
+                  exact_bands=cascade == 'device', fused_tail=False)
+    jax_pipeline = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2,
+                               workers=2, collapse_runs=4, precision='bf16',
+                               use_pallas=False, **kwargs)
+    expected = jax_pipeline.ocr_pages(pages[:2])
     with _port(weights, precision='bf16', **kwargs) as pipeline:
         assert pipeline.mono_weights is None and pipeline.char_head == 'xla'
         got = pipeline.ocr_pages(pages[:2])
+        assert pipeline.escalation_stats == jax_pipeline.escalation_stats
     assert sum(len(lines) for page in got for lines in page) > 0
     assert_within_flip_budget(got, expected)
 
@@ -193,12 +273,18 @@ def test_dispatcher_errors_surface_on_the_caller(pages):
             pipeline.ocr_pages(pages[:1])
 
 
-def test_unported_combinations_raise():
-    for kwargs in (dict(device_cascade=True),
-                   dict(device_cascade=True, exact_bands=True,
-                        sampler='twopass')):
-        with pytest.raises(NotImplementedError, match='A4b'):
-            OCRPipeline(PAGE_SHAPE, device='cpu', **kwargs)
+@pytest.mark.parametrize('kwargs', [
+    dict(device_cascade=True, collapse_runs=4),     # JAX's fused-tail default
+    dict(device_cascade=True, fused_tail=True)])
+def test_unported_combinations_raise(kwargs):
+    """The fused tail is not ported: wherever JAX would run it, the
+    constructor raises, naming the roadmap item."""
+    with pytest.raises(NotImplementedError, match='A5'):
+        OCRPipeline(PAGE_SHAPE, device='cpu', **kwargs)
+    # where JAX turns it off, nothing raises
+    for other in (dict(kwargs, fused_tail=False),
+                  dict(kwargs, exact_bands=True)):
+        OCRPipeline(PAGE_SHAPE, device='cpu', **other).close()
 
 
 def test_cpu_runs_plain_versions_in_the_pipeline_precision(monkeypatch):

@@ -1,9 +1,11 @@
 """The committed smoke fixture, univer_ocr_tpu_torch/fixtures/
 smoke_pages.npz: 4 synthetic pages (496x736 uint8, rendered by the JAX
 package's generator from a fixed seed, as bench.py renders its pages),
-the text the JAX host cascade gives for each on the CPU (`texts`) and the
+the text the JAX host cascade gives for each on the CPU (`texts`), the
 text its device cascade gives in the parity mode (`device_texts`:
-`exact_bands=True`, 'highest', `collapse_runs=4`).  chip_smoke.py drives
+`exact_bands=True`, 'highest', `collapse_runs=4`) and in the tables mode
+(`tables_texts`: `exact_bands=False`, sampler 'twopass',
+`fused_tail=False`, 'highest', `collapse_runs=4`).  chip_smoke.py drives
 the port on the card with these pages, which the card machine cannot
 render (it has no Pillow and no fonts).
 
@@ -54,6 +56,16 @@ def test_fixture_holds_the_device_cascade_text():
                                                      for page in texts]
 
 
+def test_fixture_holds_the_tables_text():
+    """The tables mode's text keeps the parity mode's paragraphs, each
+    with some lines."""
+    _, device_texts = load_fixture('device_texts')
+    _, tables_texts = load_fixture('tables_texts')
+    _well_formed(tables_texts)
+    assert [len(page) for page in tables_texts] == [len(page)
+                                                     for page in device_texts]
+
+
 def test_port_reproduces_the_fixture_text_on_cpu():
     from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
     from univer_ocr_tpu_torch.weights import load_checkpoint
@@ -66,8 +78,8 @@ def test_port_reproduces_the_fixture_text_on_cpu():
 
 
 def generate():
-    """Render the pages and record the JAX host and device cascades'
-    text."""
+    """Render the pages and record the text of the JAX host cascade and
+    of both modes of its device cascade."""
     import jax
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, str(ROOT))
@@ -91,11 +103,17 @@ def generate():
                          workers=2, device_cascade=True, exact_bands=True,
                          precision='highest', collapse_runs=4)
     device_texts = device.ocr_pages([p[None, :, :, None] for p in pages])
+    tables = OCRPipeline(PAGE_SHAPE, weights=weights, chunk=N_PAGES,
+                         workers=2, device_cascade=True, exact_bands=False,
+                         sampler='twopass', fused_tail=False,
+                         precision='highest', collapse_runs=4)
+    tables_texts = tables.ocr_pages([p[None, :, :, None] for p in pages])
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(
         FIXTURE, pages=pages,
         texts=np.array(json.dumps(texts, ensure_ascii=False)),
-        device_texts=np.array(json.dumps(device_texts, ensure_ascii=False)))
+        device_texts=np.array(json.dumps(device_texts, ensure_ascii=False)),
+        tables_texts=np.array(json.dumps(tables_texts, ensure_ascii=False)))
     print(f'{FIXTURE}: {FIXTURE.stat().st_size} bytes, '
           f'{sum(len(p) for p in texts)} paragraphs')
 

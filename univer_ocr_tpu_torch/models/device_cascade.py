@@ -15,11 +15,20 @@ resample on the CPU are gathered on the device instead:
     `zoomed_line_crops_matmul`, because gathers are slow on a TPU; the
     values are the same).
 
+The serving sampler, 'twopass' (`twopass_paragraph_crops*`), resamples
+the same crops in two 1D passes (an exact rot90 parity fold, an integer
+bbox extraction, then one shear-and-scale pass per axis).  The JAX
+package runs its extraction and its 2-tap blends as one-hot matrix
+products on the MXU; here they are gathers, with the same values: the
+extraction and the integer shifts are pure selection, and each output
+sample is the same two products and their sum.
+
 Both compose with the masked Line/Char forwards (fastpath.py) into the
-stage functions `paragraph_stage*` and the pipeline's line stage.  Masks
-move as one byte per pixel where the JAX package bit-packs them; the bits
-are the same.  The tables mode and the two-pass sampler (the JAX serving
-default) are not ported yet (ROADMAP A4b).
+stage functions `paragraph_stage*` and the pipeline's line stage.  In the
+parity mode the paragraph stage returns the band masks, as one byte per
+pixel where the JAX package bit-packs them (the bits are the same); in
+the tables mode (band_tables.py) it returns the sheared crops and the
+tables payload.
 
 The forwards' convolutions are full float32 in 'highest' only while TF32
 is off: run the stages inside `ops.precision.backend_flags(precision)`
@@ -29,6 +38,8 @@ is off: run the stages inside `ops.precision.backend_flags(precision)`
 import numpy as np
 import torch
 
+from ..ops import precision as precision_policy
+from .band_tables import pack_tables_payload, tables_state
 from .fastpath import _mask_hw, line_forward_masked
 
 # ---------------------------------------------------------------------------
@@ -300,6 +311,200 @@ def unpack_line_plan(plan):
     return _unpack(plan, LINE_INT_FIELDS, LINE_FLT_FIELDS)
 
 
+
+
+# ---------------------------------------------------------------------------
+# Two-pass paragraph crops (the tables mode's sampler)
+#
+#   1. parity fold: angles in (45, 135) degrees sample the rot90'd source,
+#      so the residual rotation has |cos| >= |sin|;
+#   2. bbox extraction: an integer gather of the (folded) bbox;
+#   3. rotation as two 1D passes (Catmull-Smith / Paeth): per line an
+#      integer shift and a 2-tap fractional blend, then a 2-tap resample
+#      at a shared scale.
+#
+# Level paragraphs (the identity affine) take integer positions and
+# weights 0 and 1, so their crops equal the gather sampler's bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _log_shift_cols(padded, v, K):
+    """out[b, i, x] = padded[b, i, x + v[b, i]] for x < K, as one gather;
+    reads past the end repeat the last column."""
+    last = padded.shape[2] - 1
+    idx = torch.clamp(torch.arange(K, device=padded.device).reshape(1, 1, K)
+                      + v[:, :, None], max=last)
+    return torch.gather(padded, 2, idx)
+
+
+def _affine_pass(src, scale, line_off, pos_off, S):
+    """One resample pass: dst[b, i, j] = linear interpolation of
+    src[b, i, .] at scale_b*j + line_off_b*(i - I//2) + pos_off_b, zero
+    outside [0, K-1].  S bounds |line_off*(i - I//2)|.  In bfloat16 the
+    blend rounds per operation and the resample rounds its float32 sum
+    once, as the JAX package's bf16 elementwise blend and one-hot
+    product do."""
+    B, I, K = src.shape
+    dev, dt = src.device, src.dtype
+    i_rel = torch.arange(I, dtype=torch.float32, device=dev) - (I // 2)
+    q = line_off[:, None] * i_rel[None, :]                        # (B, I)
+    d = torch.floor(q)
+    f = (q - d).to(dt)
+    d = torch.clamp(d.to(torch.int64), -S, S)
+    padded = torch.cat([src.new_zeros((B, I, 2 * S)), src,
+                        src.new_zeros((B, I, 2 * S + 1))], dim=2)
+    shifted = _log_shift_cols(padded, S + d, K + 2 * S + 1)
+    # per-line fractional blend: blended[x] = src[x - S + q], zero-extended
+    blended = (shifted[:, :, :K + 2 * S] * (1 - f)[:, :, None]
+               + shifted[:, :, 1:] * f[:, :, None])
+    pos0 = (scale[:, None] * torch.arange(K, dtype=torch.float32,
+                                          device=dev)[None, :]
+            + pos_off[:, None])                                   # (B, J)
+    x0 = torch.floor(pos0)
+    w = (pos0 - x0).to(dt)
+    xi = x0.to(torch.int64) + S
+    N = K + 2 * S
+
+    def tap(idx):
+        inside = (idx >= 0) & (idx < N)
+        got = torch.gather(blended, 2, torch.clamp(idx, 0, N - 1)[
+            :, None, :].expand(B, I, K))
+        return torch.where(inside[:, None, :], got, 0).to(torch.float32)
+
+    out = (tap(xi) * (1 - w).to(torch.float32)[:, None, :]
+           + tap(xi + 1) * w.to(torch.float32)[:, None, :])
+    return out.to(dt)
+
+
+def _twopass_crops(pages, blob, page_idx, src_y0, src_x0, src_h, src_w,
+                   cos_a, sin_a, off_y, off_x, out_y0, out_x0,
+                   out_h, out_w, pad_y, pad_x, out_hb, out_wb,
+                   precision=None):
+    """Core of both two-pass crop variants.
+
+    pages: (N, HP, WP) float32 page planes, already paragraph-masked on
+    the resident path; blob: (B, HB, WB) bbox-local 0/1 blob or None.
+    Other arguments as rotated_paragraph_crops.  Returns (B, HB, WB, 1)
+    float32.  In 'bf16' the page is rounded to bfloat16 first and each
+    pass's result after it, as in the JAX package."""
+    dev = pages.device
+    B, HB, WB = page_idx.shape[0], out_hb, out_wb
+    dt = (torch.bfloat16 if precision_policy.resolve(precision) == 'bf16'
+          else torch.float32)
+    HP, WP = pages.shape[1], pages.shape[2]
+    flat = pages.to(dt).reshape(-1)
+
+    def col(v, dtype=torch.int64):
+        return _per_sample(v, B, dtype, dev)
+
+    page, sy0, sx0 = col(page_idx), col(src_y0), col(src_x0)
+    sh, sw = col(src_h), col(src_w)
+    cos_v, sin_v = (torch.as_tensor(v, device=dev).to(torch.float32)
+                    for v in (cos_a, sin_a))
+    oy, ox = (torch.as_tensor(v, device=dev).to(torch.float32)
+              for v in (off_y, off_x))
+
+    # parity fold: sample the rot90'd source when |sin| > |cos|
+    par = torch.abs(sin_v) > torch.abs(cos_v)
+    c_r = torch.where(par, sin_v, cos_v)
+    s_r = torch.where(par, -cos_v, sin_v)
+    swf = sw.reshape(B).to(torch.float32)
+    oy_r = torch.where(par, swf - 1.0 - ox, oy)
+    ox_r = torch.where(par, oy, ox)
+
+    zero = torch.zeros((), dtype=dt, device=dev)
+    iH = torch.arange(HB, device=dev).reshape(1, HB, 1)
+    iW = torch.arange(WB, device=dev).reshape(1, 1, WB)
+
+    def take(ys, xs, valid):
+        inside = valid & (ys >= 0) & (ys < HP) & (xs >= 0) & (xs < WP)
+        at = ((page * HP + torch.clamp(ys, 0, HP - 1)) * WP
+              + torch.clamp(xs, 0, WP - 1))
+        return torch.where(inside, flat[at], zero)
+
+    # parity 0: e0[i, j] = page[sy0 + i, sx0 + j]
+    e0 = take(sy0 + iH, sx0 + iW, (iH < sh) & (iW < sw))
+    # parity 1: e90[i, j] = page[sy0 + j, sx0 + sw - 1 - i], the rot90 of
+    # the bbox crop
+    e90 = take(sy0 + iW, sx0 + sw - 1 - iH, (iW < sh) & (iH < sw))
+    if blob is not None:
+        blob = blob.to(dt)
+        e0 = e0 * blob
+        # e90[i, j] takes the blob at (j, sw - 1 - i)
+        bx = sw - 1 - iH
+        inside = (iW < HB) & (iH < sw) & (bx < WB)
+        at = ((torch.arange(B, device=dev).reshape(B, 1, 1) * HB
+               + torch.clamp(iW, max=HB - 1)) * WB + torch.clamp(bx, 0, WB - 1))
+        e90 = e90 * torch.where(inside, blob.reshape(-1)[at], zero)
+    src = torch.where(par[:, None, None], e90, e0)
+
+    gy0 = (torch.as_tensor(out_y0, device=dev).to(torch.float32)
+           - torch.as_tensor(pad_y, device=dev).to(torch.float32))
+    gx0 = (torch.as_tensor(out_x0, device=dev).to(torch.float32)
+           - torch.as_tensor(pad_x, device=dev).to(torch.float32))
+
+    # pass 1 (x): X'(y, g) = (1/c)(g + gx0) - (s/c) y + ox + (s/c) oy,
+    # which composed with pass 2's rows lands on the affine's backward map
+    inv_c = 1.0 / c_r
+    t = s_r * inv_c                                               # |t| <= 1
+    h_mid = _affine_pass(
+        src, inv_c, -t, inv_c * gx0 + ox_r + t * oy_r - t * (HB // 2),
+        HB - HB // 2 + 1)
+    # pass 2 (y): Y(r, g) = c (r + gy0) + s (g + gx0) + oy, along the rows
+    # of the transposed intermediate
+    out_t = _affine_pass(
+        h_mid.transpose(1, 2), c_r, s_r,
+        c_r * gy0 + s_r * gx0 + oy_r + s_r * (WB // 2),
+        int(np.ceil(0.70711 * (WB - WB // 2))) + 1)
+    crops = out_t.transpose(1, 2).to(torch.float32)
+
+    # domain and output-window masks from the original affine, the gather
+    # sampler's expressions
+    grid_y = iH.to(torch.float32) + gy0.reshape(B, 1, 1)
+    grid_x = iW.to(torch.float32) + gx0.reshape(B, 1, 1)
+    cos_c, sin_c = cos_v.reshape(B, 1, 1), sin_v.reshape(B, 1, 1)
+    in_y = cos_c * grid_y + sin_c * grid_x + oy.reshape(B, 1, 1)
+    in_x = -sin_c * grid_y + cos_c * grid_x + ox.reshape(B, 1, 1)
+    shf = sh.to(torch.float32)
+    in_domain = ((in_y >= 0) & (in_y <= shf - 1)
+                 & (in_x >= 0) & (in_x <= swf.reshape(B, 1, 1) - 1))
+    py, px = col(pad_y), col(pad_x)
+    in_slice = ((iH >= py) & (iH < py + col(out_h))
+                & (iW >= px) & (iW < px + col(out_w)))
+    return torch.where(in_domain & in_slice, crops,
+                       torch.zeros((), device=dev))[..., None]
+
+
+def twopass_paragraph_crops(mono_stack, blob, page_idx,
+                            src_y0, src_x0, src_h, src_w,
+                            cos_a, sin_a, off_y, off_x,
+                            out_y0, out_x0, out_h, out_w,
+                            pad_y, pad_x, precision=None):
+    """rotated_paragraph_crops by the two-pass sampler; blob (B, HB, WB)
+    0/1 bytes."""
+    return _twopass_crops(mono_stack[:, :, :, 0], blob, page_idx,
+                          src_y0, src_x0, src_h, src_w, cos_a, sin_a,
+                          off_y, off_x, out_y0, out_x0, out_h, out_w,
+                          pad_y, pad_x, blob.shape[1], blob.shape[2],
+                          precision=precision)
+
+
+def twopass_paragraph_crops_resident(mono_stack, para_stack, page_idx,
+                                     src_y0, src_x0, src_h, src_w,
+                                     cos_a, sin_a, off_y, off_x,
+                                     out_y0, out_x0, out_h, out_w,
+                                     pad_y, pad_x, out_hb, out_wb,
+                                     precision=None):
+    """rotated_paragraph_crops_resident by the two-pass sampler: the
+    paragraph mask multiplies the page before resampling, as the gather
+    multiplies both at the same integer source coordinates."""
+    masked = mono_stack[:, :, :, 0] * para_stack[:, :, :, 0]
+    return _twopass_crops(masked, None, page_idx, src_y0, src_x0,
+                          src_h, src_w, cos_a, sin_a, off_y, off_x,
+                          out_y0, out_x0, out_h, out_w, pad_y, pad_x,
+                          out_hb, out_wb, precision=precision)
+
+
 # ---------------------------------------------------------------------------
 # Stage functions
 # ---------------------------------------------------------------------------
@@ -307,8 +512,7 @@ def unpack_line_plan(plan):
 
 def _thresholded_bands(params, crops, h_valid, w_valid, precision=None):
     """Masked Line forward + the band threshold (arr > 0.5*(mean+max) over
-    the valid region).  Returns the (B, H, W, 2) uint8 0/1 band masks: the
-    bits the JAX package packs with `packbits`."""
+    the valid region) -> (B, H, W, 2) bool band masks."""
     pred = line_forward_masked(params, crops, h_valid, w_valid,
                                prefix='Line', precision=precision)
     pred = _mask_hw(pred, h_valid, w_valid)
@@ -321,22 +525,44 @@ def _thresholded_bands(params, crops, h_valid, w_valid, precision=None):
     valid = (rows < hv) & (cols < wv)
     mean = pred.sum(dim=(1, 2), keepdim=True) / (hv.float() * wv.float())
     peak = pred.amax(dim=(1, 2), keepdim=True)
-    return ((pred > 0.5 * (mean + peak)) & valid).to(torch.uint8)
+    return (pred > 0.5 * (mean + peak)) & valid
+
+
+def _finish_paragraph_stage(params, crops, h_valid, w_valid, precision=None,
+                            tables=False, syncs=None):
+    """Tail of both paragraph stages: Line forward and band threshold,
+    then the band masks as uint8 0/1 (parity mode), or, with tables=True,
+    the crops sheared by tables_state (with the shear margin of rotated
+    crops, whose content starts at row 0) and ONE (B, NBYTES) uint8 tables
+    payload (pack_tables_payload); `syncs` counts tables_state's host
+    syncs."""
+    bands = _thresholded_bands(params, crops, h_valid, w_valid,
+                               precision=precision)
+    if not tables:
+        return crops, bands.to(torch.uint8)
+    crops, *state = tables_state(bands, crops, syncs=syncs)
+    return crops, pack_tables_payload(*state)
 
 
 def paragraph_stage(params, mono_stack, blob, page_idx,
                     src_y0, src_x0, src_h, src_w,
                     cos_a, sin_a, off_y, off_x, out_y0, out_x0,
                     out_h, out_w, pad_y, pad_x, h_valid, w_valid,
-                    precision=None):
-    """Deskewed-paragraph stage: crop resampling + masked Line forward +
-    band threshold.  Returns (crops, band masks)."""
-    crops = rotated_paragraph_crops(
-        mono_stack, blob, page_idx, src_y0, src_x0, src_h, src_w,
-        cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w,
-        pad_y, pad_x)
-    return crops, _thresholded_bands(params, crops, h_valid, w_valid,
-                                     precision=precision)
+                    precision=None, tables=False, sampler='gather',
+                    syncs=None):
+    """Deskewed-paragraph stage with the blobs uploaded: crop resampling
+    by `sampler` ('gather' or 'twopass') + masked Line forward + band
+    threshold.  Returns (crops, band masks | tables payload)."""
+    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
+            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x)
+    if sampler == 'twopass':
+        crops = twopass_paragraph_crops(mono_stack, blob, *args,
+                                        precision=precision)
+    else:
+        crops = rotated_paragraph_crops(mono_stack, blob, *args)
+    return _finish_paragraph_stage(params, crops, h_valid, w_valid,
+                                   precision=precision, tables=tables,
+                                   syncs=syncs)
 
 
 def paragraph_stage_rot_resident(params, mono_stack, para_stack, page_idx,
@@ -344,12 +570,19 @@ def paragraph_stage_rot_resident(params, mono_stack, para_stack, page_idx,
                                  cos_a, sin_a, off_y, off_x,
                                  out_y0, out_x0, out_h, out_w,
                                  pad_y, pad_x, h_valid, w_valid,
-                                 out_hb, out_wb, precision=None):
+                                 out_hb, out_wb, precision=None,
+                                 tables=False, sampler='gather', syncs=None):
     """paragraph_stage without the blob upload (bboxes that hold one
-    component)."""
-    crops = rotated_paragraph_crops_resident(
-        mono_stack, para_stack, page_idx, src_y0, src_x0, src_h, src_w,
-        cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w,
-        pad_y, pad_x, out_hb, out_wb)
-    return crops, _thresholded_bands(params, crops, h_valid, w_valid,
-                                     precision=precision)
+    component): the blob is read from the resident paragraph mask."""
+    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
+            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x,
+            out_hb, out_wb)
+    if sampler == 'twopass':
+        crops = twopass_paragraph_crops_resident(
+            mono_stack, para_stack, *args, precision=precision)
+    else:
+        crops = rotated_paragraph_crops_resident(mono_stack, para_stack,
+                                                 *args)
+    return _finish_paragraph_stage(params, crops, h_valid, w_valid,
+                                   precision=precision, tables=tables,
+                                   syncs=syncs)

@@ -21,6 +21,11 @@ LEAKY_ALPHA = 0.01
 
 
 def _per_sample(v, device):
+    """A per-sample value broadcast over NHWC.  A Python int, one value
+    for every sample, stays a scalar: as a tensor it would be copied to
+    the device from pageable memory, which waits for the stream."""
+    if isinstance(v, int):
+        return v
     return torch.as_tensor(v, device=device).reshape(-1, 1, 1, 1)
 
 

@@ -14,17 +14,28 @@ Host cascade (`device_cascade=False`), per chunk of pages:
      over every line of the chunk;
   6. host: decode the ids to text.
 
-Device cascade (`device_cascade=True`, parity mode `exact_bands=True`
-with the 'gather' sampler; models/device_cascade.py): the monochrome map
-and every crop stay on the device.  Per chunk, `front_resident` keeps the
-map and pulls only the paragraph mask; the host labels it and plans each
-paragraph's crop (`_page_paragraph_plans`); the paragraph stage gathers
-the deskewed crops and runs Line + band threshold on the device; the host
-pulls the band masks and plans each line (`_plan_lines`); the line stage
-gathers the zoomed lines and runs Char + argmax on the device; the host
-pulls the ids and decodes.  A dispatcher thread runs
-chunk i+1's dispatch while the caller's thread collects chunk i, and the
-paragraph launches of a chunk are handled in parallel on the pool.
+Device cascade (`device_cascade=True`; models/device_cascade.py): the
+monochrome map and every crop stay on the device.  Per chunk,
+`front_resident` keeps the map and pulls only the paragraph mask; the
+host labels it and plans each paragraph's crop (`_page_paragraph_plans`);
+the paragraph stage resamples the deskewed crops and runs Line + band
+threshold on the device; the host pulls what the line planner needs and
+plans each line; the line stage gathers the zoomed lines and runs Char +
+argmax on the device; the host pulls the ids and decodes.  Two modes:
+
+  * parity (`exact_bands=True`, sampler 'gather'): the band masks come
+    home and the host labels them (`_plan_lines`), as the host cascade
+    does;
+  * tables (`exact_bands=False`, sampler 'twopass', JAX's default;
+    models/band_tables.py): the paragraph stage computes per-blob tables
+    of the bands on the device and sends one small payload per launch;
+    the host pairs lines from the tables (`_plan_lines_from_tables`), or,
+    for paragraphs the device still flags as merged, from the folded
+    profile in the payload (`_plan_lines_from_profile`).
+
+A dispatcher thread runs chunk i+1's dispatch while the caller's thread
+collects chunk i, and the paragraph launches of a chunk are handled in
+parallel on the pool.
 
 On the card Monochrome and the Char head run as the CUDA kernels
 (ops/kernels), in float32 whatever the precision, as the JAX package's
@@ -48,8 +59,10 @@ no stage toggles them; two pipelines of different precisions must not run
 
 import contextlib
 import queue
+import sys
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -58,12 +71,15 @@ from scipy import ndimage
 
 from .. import ops
 from ..device import resolve_device
-from ..interpreter import (_ORIENTATION_KEYS, _orientation_code, bbox,
+from ..interpreter import (_ORIENTATION_KEYS, _extremal_coords,
+                           _orientation_code, bbox,
                            crop_and_rotate_single_paragraph,
                            find_rotation_angle, label_layer,
                            pred_ids_to_text, rearrange_lines, rotate_array)
 from ..ops.kernels import fused_monochrome
 from ..weights import params_from_numpy, random_params
+from .band_tables import (PROFILE_ROW_DS, _group_centers, _shear_span,
+                          unpack_tables_payload)
 from .bucketing import (CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT, CHAR_WIDTH_MENU,
                         line_shape_menu, make_divisible_by, pick_char_width,
                         pick_line_shape)
@@ -79,9 +95,8 @@ from .fastpath import (_mask_hw, char_forward_masked, char_head_weights,
 
 #: seed of the generator behind `OCRPipeline(weights=None)`
 RANDOM_INIT_SEED = 0
-#: what the device cascade's modes that are not ported yet wait for
-NOT_PORTED = ('the band-tables mode and the two-pass sampler are not '
-              'ported yet (ROADMAP A4b)')
+#: what the fused tail (JAX models/fused_tail.py) waits for
+NOT_PORTED = 'the fused tail is not ported yet (ROADMAP A5)'
 
 
 def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
@@ -135,9 +150,11 @@ class OCRPipeline:
     the JAX pipeline initialises its models when given none.
     `device`: None or 'cuda' runs on the card (raising without one), with
     the CUDA kernels; 'cpu' runs on the host, with their plain versions.
-    `device_cascade`, `exact_bands`, `sampler`: as in the JAX pipeline;
-    only the parity mode (`device_cascade=True, exact_bands=True`, sampler
-    'gather') of the device cascade is ported.
+    `device_cascade`, `exact_bands`, `sampler`, `escalation`: as in the
+    JAX pipeline, every combination.  `fused_tail`: as in the JAX
+    pipeline, whose default turns it on in the tables mode with an
+    integer `collapse_runs`; it is not ported, so wherever it would be on
+    the constructor raises NotImplementedError (pass fused_tail=False).
     Set `timers` to a `utils.profiling.StageTimers` to time the stages
     (with it set, `timeline` records every device-to-host pull as
     (tag, start, end, bytes)).  Close the pipeline (`close()` or `with`)
@@ -154,13 +171,24 @@ class OCRPipeline:
     def __init__(self, page_shape, weights=None, chunk=8, workers=8,
                  collapse_runs=False, quantized_transfers=True,
                  precision='highest', device=None, device_cascade=False,
-                 exact_bands=False, sampler=None):
+                 exact_bands=False, escalation=True, sampler=None,
+                 fused_tail=None):
         if sampler is None:
             sampler = 'gather' if exact_bands else 'twopass'
-        if device_cascade and (not exact_bands or sampler != 'gather'):
+        if sampler not in ('gather', 'twopass'):
+            raise ValueError(f'unknown sampler {sampler!r}')
+        self.sampler = sampler
+        self.band_tables = device_cascade and not exact_bands
+        self.escalation = escalation
+        if fused_tail is None:
+            fused_tail = (self.band_tables
+                          and isinstance(collapse_runs, int)
+                          and not isinstance(collapse_runs, bool)
+                          and collapse_runs >= 1)
+        if fused_tail and self.band_tables:
             raise NotImplementedError(
-                f'device_cascade=True with exact_bands={exact_bands}, '
-                f'sampler={sampler!r}: {NOT_PORTED}')
+                f'fused_tail={fused_tail} in the tables mode: {NOT_PORTED}; '
+                'pass fused_tail=False')
         self.device = resolve_device(device)
         self.page_shape = tuple(page_shape)
         self.chunk = chunk
@@ -186,6 +214,17 @@ class OCRPipeline:
         self._xfer = ThreadPoolExecutor(max_workers=16)
         self.timers = None
         self.timeline = []
+        #: tables-mode planning counters: paragraphs planned, and those
+        #: re-planned from their profile because the device still flags
+        #: them ('suspect') or their other axis finds separate lines
+        #: ('cross_axis')
+        self.escalation_stats = {'paragraphs': 0, 'suspect': 0,
+                                 'cross_axis': 0}
+        self._stats_lock = threading.Lock()
+        #: tables-mode host syncs on the dispatcher thread, by kind:
+        #: 'suspect_check' (one per paragraph launch) and 'grid_ccl_block'
+        #: (one per block of grid-CCL sweeps; band_tables.tables_state)
+        self.host_syncs = Counter()
 
     def close(self):
         self._pool.shutdown(wait=True)
@@ -303,13 +342,16 @@ class OCRPipeline:
         return ids, valid
 
     def stage_rot_blob(self, mono_stack, blob, plan):
-        """Paragraph stage with the blobs uploaded: (crops, band masks)."""
+        """Paragraph stage with the blobs uploaded: (crops, band masks or
+        tables payload)."""
         iv, fv = unpack_paragraph_plan(plan)
         return paragraph_stage(
             self.params, mono_stack, blob, iv['page'], iv['y0'], iv['x0'],
             iv['h'], iv['w'], fv['cos'], fv['sin'], fv['off_y'],
             fv['off_x'], iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'],
-            iv['py'], iv['px'], iv['hv'], iv['wv'], precision=self.precision)
+            iv['py'], iv['px'], iv['hv'], iv['wv'], precision=self.precision,
+            tables=self.band_tables, sampler=self.sampler,
+            syncs=self.host_syncs)
 
     def stage_rot_res(self, mono_stack, para_stack, plan, hb, wb):
         """Paragraph stage with the blobs read from the resident mask."""
@@ -319,7 +361,8 @@ class OCRPipeline:
             iv['x0'], iv['h'], iv['w'], fv['cos'], fv['sin'], fv['off_y'],
             fv['off_x'], iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'],
             iv['py'], iv['px'], iv['hv'], iv['wv'], hb, wb,
-            precision=self.precision)
+            precision=self.precision, tables=self.band_tables,
+            sampler=self.sampler, syncs=self.host_syncs)
 
     def line_stage(self, crop_stack, plan, out_h, out_w):
         """Zoomed line crops (one gather) + Char forward + argmax -> (B,
@@ -499,10 +542,26 @@ class OCRPipeline:
         return results
 
     # -- device cascade: host planning -------------------------------------
+    def _line_menu_shape(self, h, w, shear_margin=False):
+        """Smallest menu bucket holding (h, w); shear_margin=True (the
+        tables mode) also reserves the shear span on both axes, so content
+        the device de-tilt shifts (band_tables._shear_rows) stays in
+        frame."""
+        if not shear_margin:
+            return pick_line_shape(self.line_shape_menu, h, w)
+        for hb, wb in self.line_shape_menu:
+            if (h + 2 * _shear_span(wb) <= hb
+                    and w + 2 * _shear_span(hb) <= wb):
+                return hb, wb
+        return self.line_shape_menu[-1]
+
     def _page_paragraph_plans(self, page_idx, para2d):
         """Label one page's paragraph mask and plan each blob's crop for
-        the affine gather: level paragraphs (angle None) carry the
-        identity affine, deskewed ones the scipy rotate affine."""
+        the affine samplers: level paragraphs (angle None) carry the
+        identity affine, deskewed ones the scipy rotate affine.  With the
+        'twopass' sampler the rotated bbox is analytic, from the blob's
+        extremal pixels, where the gather takes it from a scipy rotate of
+        the blob."""
         labels, _ = ndimage.label(para2d > 0)
         plans = []
         for label_id, sl in enumerate(ndimage.find_objects(labels), start=1):
@@ -515,6 +574,23 @@ class OCRPipeline:
                 (cos_a, sin_a), off = (1.0, 0.0), (0.0, 0.0)
                 ry0 = rx0 = 0
                 out_h, out_w = h, w
+            elif self.sampler == 'twopass':
+                # hull-projection extremes plus the order-0 sampling
+                # margin, rounded outward: at most a pixel looser than the
+                # rotated mask's bbox, which only adds zero rows/cols
+                # inside the masked crop
+                (rh, rw), (cos_a, sin_a), off = rotate_affine(angle, h, w)
+                coords = _extremal_coords(blob)
+                dy = coords[:, 0] - off[0]
+                dx = coords[:, 1] - off[1]
+                proj_y = cos_a * dy - sin_a * dx
+                proj_x = sin_a * dy + cos_a * dx
+                m = (abs(cos_a) + abs(sin_a)) / 2.0
+                ry0 = max(int(np.floor(proj_y.min() - m)), 0)
+                rx0 = max(int(np.floor(proj_x.min() - m)), 0)
+                y1 = min(int(np.ceil(proj_y.max() + m)), rh - 1)
+                x1 = min(int(np.ceil(proj_x.max() + m)), rw - 1)
+                out_h, out_w = y1 - ry0 + 1, x1 - rx0 + 1
             else:
                 _, (cos_a, sin_a), off = rotate_affine(angle, h, w)
                 # nearest rotation of the 0/1 mask as uint8: the values of
@@ -531,8 +607,14 @@ class OCRPipeline:
             pad_h, pad_w = 16 - out_h % 16, 16 - out_w % 16
             hv, wv = out_h + pad_h, out_w + pad_w
             py, px = pad_h // 2, pad_w // 2
-            hb, wb = pick_line_shape(self.line_shape_menu, max(h, hv),
-                                     max(w, wv))
+            # the two-pass sampler folds near-90-degree rotations through
+            # a rot90 of the source, so the bucket must hold the
+            # transposed source extent too
+            rot90_fold = self.sampler == 'twopass' and abs(sin_a) > abs(cos_a)
+            hb, wb = self._line_menu_shape(
+                max(h, hv, w if rot90_fold else 0),
+                max(w, wv, h if rot90_fold else 0),
+                shear_margin=self.band_tables)
             # a rotated page-diagonal paragraph can exceed the page-sized
             # menu: clamp
             out_h, hv = min(out_h, hb), min(hv, hb)
@@ -587,11 +669,13 @@ class OCRPipeline:
                                             bottom_boxes, cm_bottom)
         return self._plans_from_bboxes(bboxes, rotation)
 
-    @staticmethod
-    def _pair_lines(top_boxes, cm_top, bottom_boxes, cm_bottom):
+    @classmethod
+    def _pair_lines(cls, top_boxes, cm_top, bottom_boxes, cm_bottom,
+                    merge_fragments=False):
         """Pairing, orientation and reading order (rearrange_lines) on
-        per-blob (bbox slices, centres) of both channels.  Returns (line
-        bboxes, rot90 code)."""
+        per-blob (bbox slices, centres) of both channels, shared by the
+        mask, table and profile planners.  Returns (line bboxes, rot90
+        code)."""
         if not len(top_boxes) or not len(bottom_boxes):
             return [], 0
         d = np.linalg.norm(cm_top[:, None, :] - cm_bottom[None, :, :],
@@ -606,14 +690,145 @@ class OCRPipeline:
         order_top = np.argsort(sign * cm_top[:, axis - 1], kind='stable')
         order_bottom = np.argsort(sign * cm_bottom[:, axis - 1],
                                   kind='stable')
-        bboxes = []
+        bboxes, picks = [], []
         for ti, bi in zip(order_top, order_bottom):
             ty, tx = top_boxes[ti]
             by_, bx_ = bottom_boxes[bi]
+            picks.append(int(pick[ti]))
             bboxes.append((
                 slice(min(ty.start, by_.start), max(ty.stop, by_.stop)),
                 slice(min(tx.start, bx_.start), max(tx.stop, bx_.stop))))
+        if merge_fragments:
+            bboxes = cls._merge_line_bboxes(bboxes, picks)
         return bboxes, rotation
+
+    def _plan_lines_from_profile(self, prof_bits, axis, hb, wb):
+        """Escalation planner: line plans from one paragraph's bit-packed
+        (L, G*C/8) closed column-group profile (the tables payload's last
+        part).  8-connected components of the (rows, G) grid separate the
+        staggered lines the row runs merged; coordinates are quantized by
+        the group width across the stacking axis and by PROFILE_ROW_DS
+        along it.  axis: the device's stacking axis; the profile is the
+        view of the sheared bands (axis 0) or of their transpose (1)."""
+        view_h, view_w = (hb, wb) if axis == 0 else (wb, hb)
+        ds = PROFILE_ROW_DS
+        rows = -(-view_h // ds)
+        G, gw, _ = _group_centers(view_w)
+        bits = np.unpackbits(np.asarray(prof_bits), axis=1)
+        prof = bits[:rows].reshape(rows, G, 2).astype(bool)
+
+        eight = np.ones((3, 3), bool)   # diagonal staircases connect
+        stats = []
+        for c in range(2):
+            labels, cnt = ndimage.label(prof[:, :, c], structure=eight)
+            if cnt == 0:
+                return []
+            boxes, centers = [], []
+            coords = np.argwhere(labels > 0)
+            lab = labels[labels > 0]
+            for blob in range(1, cnt + 1):
+                pts = coords[lab == blob].astype(float)
+                (y0, g0), (y1, g1) = pts.min(axis=0), pts.max(axis=0)
+                box = (slice(int(y0) * ds, min(int(y1 + 1) * ds, view_h)),
+                       slice(int(g0) * gw, min(int(g1 + 1) * gw, view_w)))
+                cy = pts[:, 0].mean() * ds + (ds - 1) / 2.0
+                cx = pts[:, 1].mean() * gw + (gw - 1) / 2.0
+                if axis == 1:           # view coordinates -> the image's
+                    box = (box[1], box[0])
+                    cy, cx = cx, cy
+                boxes.append(box)
+                centers.append((cy, cx))
+            stats.append((boxes, np.asarray(centers)))
+        (top_boxes, cm_top), (bottom_boxes, cm_bottom) = stats
+        bboxes, rotation = self._pair_lines(top_boxes, cm_top, bottom_boxes,
+                                            cm_bottom, merge_fragments=True)
+        return self._plans_from_bboxes(bboxes, rotation)
+
+    @staticmethod
+    def _merge_line_bboxes(bboxes, picks):
+        """Union the line bboxes whose tops paired with the same bottom
+        component: a fragmented top band over one solid bottom is one line
+        (the training bands are solid bars, so fragments are Line-model
+        noise)."""
+        if len(bboxes) < 2:
+            return bboxes
+        grouped = {}
+        for box, pk in zip(bboxes, picks):
+            if pk in grouped:
+                prev = grouped[pk]
+                grouped[pk] = tuple(
+                    slice(min(prev[d].start, box[d].start),
+                          max(prev[d].stop, box[d].stop))
+                    for d in (0, 1))
+            else:
+                grouped[pk] = box
+        return list(grouped.values())
+
+    @staticmethod
+    def _cross_axis_escalation(tbl, nb, axis):
+        """True when the axis not chosen resolves more blobs than the
+        chosen one and they are separate lines: some gap between them
+        along the run axis exceeds 0.8 of the smaller neighbour's extent
+        across it (side-by-side lines the paragraph CCL merged into one
+        crop; word-gap fragments have smaller gaps)."""
+        other = 1 - axis
+        cap = tbl.shape[1]
+        lo, hi = (1, 2) if other == 0 else (3, 4)
+        clo, chi = (3, 4) if other == 0 else (1, 2)
+        for ch in range(tbl.shape[3]):
+            n_o = min(int(nb[other, ch]), cap)
+            n_c = min(int(nb[axis, ch]), cap)
+            if n_o <= max(n_c, 1):
+                continue
+            t = tbl[other, :n_o, :, ch]
+            order = np.argsort(t[:, lo], kind='stable')
+            ivs = t[order][:, [lo, hi]]
+            gaps = ivs[1:, 0] - ivs[:-1, 1]
+            heights = t[order][:, chi] - t[order][:, clo]
+            hmin = np.minimum(heights[1:], heights[:-1])
+            if (gaps > 0.8 * hmin).any():
+                return True
+        return False
+
+    def _plan_lines_from_tables(self, tbl, nb, axis):
+        """Line gather plans from one paragraph's blob tables (fields
+        [count, y0, y1, x0, x1, cy, cx] in the sheared coordinates that
+        index the returned crops): _plan_lines' pairing on precomputed
+        blobs, merging tops that pick the same bottom.  tbl (2, M, 7, 2),
+        nb (2, 2); axis: the device's stacking axis."""
+        cap = tbl.shape[1]
+        if nb.max() > cap:
+            print(f'WARNING: band blob table overflow ({int(nb.max())} > '
+                  f'{cap} blobs); extra blobs dropped', file=sys.stderr)
+        n_top = min(int(nb[axis, 0]), cap)
+        n_bottom = min(int(nb[axis, 1]), cap)
+        if n_top == 0 or n_bottom == 0:
+            return []
+        top = tbl[axis, :n_top, :, 0]
+        bottom = tbl[axis, :n_bottom, :, 1]
+        cm_top, cm_bottom = top[:, 5:7], bottom[:, 5:7]
+        d = np.linalg.norm(cm_top[:, None, :] - cm_bottom[None, :, :],
+                           axis=-1)
+        pick = d.argmin(axis=1)
+        bottom = bottom[pick]
+        cm_bottom = cm_bottom[pick]
+
+        delta = cm_top[0] - cm_bottom[0]
+        rotation = _orientation_code(delta[0], delta[1])
+        ax, sign = _ORIENTATION_KEYS[rotation]
+        order_top = np.argsort(sign * cm_top[:, ax - 1], kind='stable')
+        order_bottom = np.argsort(sign * cm_bottom[:, ax - 1], kind='stable')
+        bboxes, picks = [], []
+        for ti, bi in zip(order_top, order_bottom):
+            t, b = top[ti], bottom[bi]
+            picks.append(int(pick[ti]))
+            bboxes.append((
+                slice(int(min(t[1], b[1])), int(max(t[2], b[2]))),
+                slice(int(min(t[3], b[3])), int(max(t[4], b[4])))))
+        # two tops picking the same bottom are one line: without the merge
+        # the page decodes the same glyphs twice
+        bboxes = self._merge_line_bboxes(bboxes, picks)
+        return self._plans_from_bboxes(bboxes, rotation)
 
     @staticmethod
     def _plans_from_bboxes(bboxes, rotation):
@@ -638,8 +853,8 @@ class OCRPipeline:
     def _dispatch_paragraph_stage(self, stacks, plans):
         """Launch the crop + Line stage for all plans, grouped by shape
         menu; bboxes of one component read the resident mask, the others
-        upload their blobs.  Returns [(plan indices, crops, band masks)],
-        all on the device."""
+        upload their blobs.  Returns [(plan indices, crops, band masks or
+        tables payload)], all on the device."""
         mono_dev, para_dev = stacks
         groups = {}
         for i, plan in enumerate(plans):
@@ -753,21 +968,25 @@ class OCRPipeline:
         with self._track('dispatch_paragraph_stage'):
             launches = self._dispatch_paragraph_stage((mono_dev, para_dev),
                                                       plans)
-        band_futures = [self._pull(bands, 'bands') for _, _, bands in launches]
+        band_futures = [self._pull(payload, 'bands')
+                        for _, _, payload in launches]
 
         def handle_launch(item):
-            """Band masks -> line plans -> line-stage launches for ONE
-            paragraph launch; launches run in parallel, so pulls, host CCL
-            and dispatches overlap."""
+            """Band masks or tables -> line plans -> line-stage launches
+            for ONE paragraph launch; launches run in parallel, so pulls,
+            host planning and dispatches overlap."""
             (sel, crops_dev, _), fut = item
-            with self._track('pull_band_masks'):
-                bands = fut.result()
-            with self._track('host_line_plans'):
-                flat = []
-                for bi in range(len(sel)):
-                    plan = plans[sel[bi]]
-                    view = bands[bi, :plan['hv'], :plan['wv'], :] > 0
-                    flat.extend((bi, lp) for lp in self._plan_lines(view))
+            if self.band_tables:
+                flat = self._plan_launch_from_tables(sel, plans, fut)
+            else:
+                with self._track('pull_band_masks'):
+                    bands = fut.result()
+                with self._track('host_line_plans'):
+                    flat = []
+                    for bi in range(len(sel)):
+                        plan = plans[sel[bi]]
+                        view = bands[bi, :plan['hv'], :plan['wv'], :] > 0
+                        flat.extend((bi, lp) for lp in self._plan_lines(view))
             with self._track('dispatch_line_stage'):
                 refs = self._dispatch_line_stage(crops_dev, flat)
             id_futures = [(ref_sel, self._pull(ids_dev, 'char_ids'))
@@ -777,6 +996,41 @@ class OCRPipeline:
         char_launches = list(self._pool.map(handle_launch,
                                             zip(launches, band_futures)))
         return n_pages, plans, char_launches
+
+    def _plan_launch_from_tables(self, sel, plans, fut):
+        """The tables mode's line plans for one paragraph launch: from the
+        tables, or from the folded profile for paragraphs the device still
+        flags as suspect or whose other axis finds separate lines (the
+        profile is in the same payload, so escalating costs no extra
+        pull).  Returns [(slot, line plan)]."""
+        with self._track('pull_band_tables'):
+            (tables, n_blobs, _shears, axes, suspects,
+             profiles) = unpack_tables_payload(fut.result())
+        counts = {'paragraphs': 0, 'suspect': 0, 'cross_axis': 0}
+        with self._track('host_line_plans'):
+            flat = []
+            for bi in range(len(sel)):
+                ax = int(axes[bi])
+                counts['paragraphs'] += 1
+                escalate = False
+                if bool(suspects[bi]):
+                    counts['suspect'] += 1
+                    escalate = True
+                elif self._cross_axis_escalation(tables[bi], n_blobs[bi], ax):
+                    counts['cross_axis'] += 1
+                    escalate = True
+                if escalate and self.escalation:
+                    hb, wb = plans[sel[bi]]['menu']
+                    lps = self._plan_lines_from_profile(profiles[bi], ax,
+                                                        hb, wb)
+                else:
+                    lps = self._plan_lines_from_tables(tables[bi],
+                                                       n_blobs[bi], ax)
+                flat.extend((bi, lp) for lp in lps)
+        with self._stats_lock:
+            for key, n in counts.items():
+                self.escalation_stats[key] += n
+        return flat
 
     def _collect_chunk_device(self, state):
         """Collect phase: wait for the id pulls and decode the text."""
