@@ -11,8 +11,13 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            and one that links them
   kernels  each CUDA kernel against its plain PyTorch version, on seeded
            inputs and the committed checkpoint's weights, at the shapes
-           both paths give it, at a ragged shape and (Char head) at
-           far fewer tiles than SMs
+           the paths give it (the Monochrome block at a chunk's and at
+           the single-page chain's one page), at a ragged shape and (Char head) at
+           far fewer tiles than SMs; and the device paragraph planners
+           (device_chunk_plans, device_page_plans) on the card against
+           the same planners on the CPU, on the fixture pages' paragraph
+           masks: labels and integer plan fields equal, float fields
+           within 1e-6
   path     the host-cascade OCRPipeline on the committed fixture's pages
            (one chunk of 8), its text held against the JAX host cascade's
            text stored in the fixture; both kernels must have launched
@@ -27,14 +32,41 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            text held against the JAX tables mode's text stored in the
            fixture; both kernels must have launched; prints the
            escalation counters and the host syncs per paragraph launch
+  fused_path
+           the serving default (`device_cascade=True, collapse_runs=4`:
+           the device chunk planner and the fused tail) on the same
+           pages, its text held against the JAX text stored in the
+           fixture (`fused_texts`); both kernels must have launched;
+           prints the escalation counters, the host syncs and a census
+           of one chunk's syncs under torch's sync debug mode; then 3
+           chunks in one call, their text checked and the device
+           memory they took printed; then one chunk with the chunk
+           planner's cap cut to the fewest components of a fixture
+           page, so that the pages with more fall back to the host
+           planner (the fused stages on uploaded blobs) beside pages
+           planned on the card: the count of fallbacks and the text
+           (the tables mode's, as JAX's) checked, both kernels launched
+  chain_path
+           the same pipeline on each of the 4 fixture pages alone, the
+           single-page chain, each text held against JAX's chain text
+           (`chain_texts`), and each page's fallback to the host-planned
+           path against JAX's (`chain_fallbacks`): a fallback JAX did
+           not take fails; both kernels must have launched; prints the
+           same counters and a census; then a page of 48 ink blobs,
+           more than the chain takes: it must fall back to the
+           host-planned fused dispatch, with the text of the
+           device-planned chunk path and both kernels launched
   times    CUDA-event times of each kernel and its plain version at the
            paths' shapes (the Char head at every width each path
            launched) beside their bounds; the JAX device cascade's Char
            head, the width-8 convolution form, beside fused_char_head at
            the device path's line-stage shape (64 lines, 32 rows, W), the
-           measurement behind the port's choice of the kernel there;
-           pages/s of the host cascade and of both device modes in
-           'highest' and 'bf16' (printed, not gated) with each run's
+           measurement behind the port's choice of the kernel there, and
+           at the fused tail's shape (64, 32, 2048); the flat run-length
+           decode (fused_tail.decode_ids_device) at (64, 2048) columns;
+           pages/s of the host cascade, of both device modes and of the
+           serving default in 'highest' and 'bf16' (printed, not gated),
+           with each run's
            stage timers (OCRPipeline.timers) per chunk and, in the tables
            mode, its host syncs per paragraph launch; the 'bf16' text
            held against the 'highest' JAX text at JAX's own bar
@@ -42,7 +74,10 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            torch.profiler window over a chunk of each: the device's busy
            share of the window and its top kernels by device time; and
            for both device modes, every sync of one chunk as torch's
-           sync debug mode reports it, by line and per paragraph launch
+           sync debug mode reports it, by line and per paragraph launch;
+           and the single-page latency: the median of 10 calls of
+           `ocr_pages([page])` through the chain beside the tables mode
+           at chunk 1 (`fused_tail=False`), in 'highest' and 'bf16'
 
 Bounds: the larger of the bytes (each input read once, each output
 written once) over the HBM rate and the work over the peak rate of the
@@ -52,14 +87,14 @@ tensor cores, so its `bound_ms` is three TF32 products at 495 TFLOP/s;
 (the bound of the FFMA kernel it replaced).  The Monochrome block has no
 tensor-core shape: both its bounds are FFMA.
 
-The tables path is this slice's main path: each kernel's `launches` in the
-last JSON lines is its count on that path's run, and the Char head's times
-there are means per launch over that run's width mix (`WIDTH_LAUNCHES`),
-with each width's own numbers beside them.  `launches_by_path` gives each
-path's count (each path's run starts with the counts at 0), and the Char
-head's `host_path` and `device_path` entries its times over those paths'
-mixes.  Plain
-versions run with TF32 off (full float32).
+The fused path (the serving default) is this slice's main path: each
+kernel's `launches` in the last JSON lines is its count on that path's
+run, and the Char head's times there are means per launch over that
+run's width mix (`WIDTH_LAUNCHES`), with each width's own numbers beside
+them.  `launches_by_path` gives each path's count (each path's run
+starts with the counts at 0), and the Char head's `host_path`,
+`device_path` and `tables_path` entries its times over those paths'
+mixes.  Plain versions run with TF32 off (full float32).
 
 Any failure ends the run with a traceback and a non-zero exit before the
 last line, which on success is
@@ -68,6 +103,7 @@ last line, which on success is
 
 import contextlib
 import difflib
+from collections import Counter
 import json
 import subprocess
 import sys
@@ -91,11 +127,20 @@ TEXT_SIMILARITY = 0.99
 BF16_SIMILARITY = 0.9
 #: the device cascade's parity mode
 DEVICE_CASCADE = dict(device_cascade=True, exact_bands=True)
-#: its tables mode, without the fused tail (not ported)
+#: its tables mode, without the fused tail
 TABLES_MODE = dict(device_cascade=True, exact_bands=False, sampler='twopass',
                    fused_tail=False)
+#: the serving default: tables mode, fused tail, device planners
+FUSED_MODE = dict(device_cascade=True)
 #: timed runs of each pipeline, after one warm-up run
 REPS = 3
+#: single-page calls whose median is the latency
+LATENCY_CALLS = 10
+#: float plan fields of the card's planners against the CPU's
+PLAN_TOL = 1e-6
+#: the warning torch's sync debug mode gives for each sync
+#: (c10/cuda/CUDAFunctions.cpp, warn_or_error_on_sync)
+SYNC_WARNING = 'called a synchronizing CUDA operation'
 MONO_TOL = dict(rtol=1e-5, atol=1e-6)    # tests/test_pallas.py bars
 CHAR_TOL = dict(rtol=2e-4, atol=1e-4)
 ARGMAX_AGREEMENT = 0.999
@@ -171,10 +216,11 @@ def page_text(page):
     return '\n\n'.join('\n'.join(lines) for lines in page)
 
 
-def check_text(label, results, expected):
+def check_text(label, results, expected, n_pages=CHUNK):
     """Each page's text against the JAX text at TEXT_SIMILARITY."""
-    if len(results) != CHUNK:
-        raise AssertionError(f'{label}: {len(results)} results for {CHUNK}')
+    if len(results) != n_pages:
+        raise AssertionError(f'{label}: {len(results)} results for '
+                             f'{n_pages}')
     exact = 0
     for i, page in enumerate(results):
         want = expected[i % len(expected)]
@@ -187,25 +233,46 @@ def check_text(label, results, expected):
         if ratio < TEXT_SIMILARITY:
             raise AssertionError(f'{label} page {i}: text similarity '
                                  f'{ratio} < {TEXT_SIMILARITY}')
-    print(f'{label}: {exact}/{CHUNK} pages equal the JAX text exactly',
+    print(f'{label}: {exact}/{n_pages} pages equal the JAX text exactly',
           flush=True)
 
 
-def counted_run(pipeline, pages):
-    """One ocr_pages call with every launch count set to 0 just before it;
-    returns (results, launches by kernel, fused_char_head launches by W)."""
+def blob_grid(rows, cols, pitch=(44, 52)):
+    """A white page with a grid of separated ink blobs, each detected as
+    a paragraph (tests/test_single_page_chain.py's over-capacity page)."""
+    page = np.ones(PAGE_SHAPE, np.float32)
+    for gy in range(rows):
+        for gx in range(cols):
+            y, x = 8 + gy * pitch[0], 12 + gx * pitch[1]
+            page[0, y:y + 10, x:x + 24, 0] = 0.0
+    return page
+
+
+def run_pages(pipeline, pages, single=False):
+    """ocr_pages on the pages at once, or on each alone (single=True: the
+    single-page chain of the serving default)."""
+    if single:
+        return [r for page in pages for r in pipeline.ocr_pages([page])]
+    return pipeline.ocr_pages(pages)
+
+
+def counted_run(pipeline, pages, single=False):
+    """One run (run_pages) with every launch count set to 0 just before
+    it; returns (results, launches by kernel, fused_char_head launches by
+    W)."""
     from univer_ocr_tpu_torch.ops.kernels import LAUNCHES, char_head
     LAUNCHES.clear()
     char_head.WIDTH_LAUNCHES.clear()
-    results = pipeline.ocr_pages(pages)
+    results = run_pages(pipeline, pages, single)
     torch.cuda.synchronize()
     return (results, dict(LAUNCHES),
             dict(sorted(char_head.WIDTH_LAUNCHES.items())))
 
 
 def syncs_per_launch(counts):
-    """Host syncs per paragraph launch of the tables mode, from
-    OCRPipeline.host_syncs (one 'suspect_check' per launch)."""
+    """Host syncs per paragraph launch of the tables mode and the serving
+    default, from OCRPipeline.host_syncs (one 'suspect_check' per
+    launch)."""
     launches = counts.get('suspect_check', 0)
     return sum(counts.values()) / launches if launches else None
 
@@ -258,53 +325,78 @@ def timed_runs(pipeline, pages, label, expected):
     return CHUNK / chunk_s, stages
 
 
-def sync_census(pipeline, pages, label):
-    """Every sync one chunk makes, as torch's sync debug mode reports it
-    (a copy from pageable host memory, a read of a device value, ...),
-    counted by the line that made it and per paragraph launch (the
-    'bands' pulls of the timeline), beside what pipeline.host_syncs
-    counted in the same run."""
+def sync_census(pipeline, pages, label, single=False):
+    """Every sync one run (run_pages) makes, as torch's sync debug mode
+    reports it (a copy from pageable host memory, a read of a device
+    value, ...), counted by the line that made it and per paragraph
+    launch (the 'bands' pulls of the timeline, or the suspect checks
+    where the payloads stay on the device), beside what
+    pipeline.host_syncs counted in the same run."""
+    import threading
+    import traceback
     import warnings
     from univer_ocr_tpu_torch.utils.profiling import StageTimers
     pipeline.timers = StageTimers()
     pipeline.timeline.clear()
     pipeline.host_syncs.clear()
-    with warnings.catch_warnings(record=True) as caught:
+    where = Counter()
+    lock = threading.Lock()
+    package = str(ROOT / 'univer_ocr_tpu_torch')
+
+    notices = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        """A sync warning, keyed by its line and, where that line is in
+        torch, by the port's innermost line on the emitting thread; with
+        no line of the port on that thread, by its callers, as outside
+        the port (counted all the same).  torch's notice, when the debug
+        mode is first set, that the mode is a prototype is not a sync and
+        is listed apart."""
+        if 'synchroniz' not in str(message):
+            return
+        if SYNC_WARNING not in str(message):
+            with lock:
+                notices[str(message)] += 1
+            return
+        key = f'{Path(filename).name}:{lineno}'
+        if not filename.startswith(package):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith('warnings.py')]
+            ours = [f for f in stack if f.filename.startswith(package)]
+            via = ours[-1:] or stack[-4:-1]
+            key = ' < '.join(f'{Path(f.filename).name}:{f.lineno}'
+                             for f in via[::-1]) + f' via {key}'
+            if not ours:
+                key = f'outside the port: {key}'
+        with lock:
+            where[key] += 1
+
+    with warnings.catch_warnings():
         warnings.simplefilter('always')
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            pipeline.ocr_pages(pages)
+            run_pages(pipeline, pages, single)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    launches = sum(tag == 'bands' for tag, *_ in pipeline.timeline)
+    launches = (pipeline.host_syncs['suspect_check'] if pipeline.fused_tail
+                else sum(tag == 'bands' for tag, *_ in pipeline.timeline))
     pipeline.timers = None
-    where = {}
-    for w in caught:
-        if 'synchroniz' in str(w.message):
-            key = f'{Path(w.filename).name}:{w.lineno}'
-            where[key] = where.get(key, 0) + 1
     total = sum(where.values())
-    print(f'  {label} syncs over one chunk (torch sync debug mode): {total} '
+    print(f'  {label} syncs over one run (torch sync debug mode): {total} '
           f'in {launches} paragraph launches, '
           f'{total / max(launches, 1):.3f} per launch; host_syncs '
           f'{dict(pipeline.host_syncs)}; by line '
-          f'{json.dumps(dict(sorted(where.items(), key=lambda kv: -kv[1])))}',
+          f'{json.dumps(dict(sorted(where.items(), key=lambda kv: -kv[1])))}'
+          f'; notices that are not syncs {json.dumps(dict(notices))}',
           flush=True)
     return total, launches
 
 
-def profile_window(pipeline, pages, label):
-    """One torch.profiler window over one chunk: the device's busy share
-    of the window (device time of every CUDA activity over the window's
-    host time) and its top kernels by device time."""
+def device_activities(prof):
+    """[(device us, count, name)] of a profiler's CUDA activities."""
     from torch.autograd import DeviceType
-    from univer_ocr_tpu_torch.utils.profiling import device_trace
-    with device_trace(ROOT / 'build' / 'traces' / label) as prof:
-        t0 = time.perf_counter()
-        pipeline.ocr_pages(pages)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
 
     def device_us(event):
         for key in ('self_device_time_total', 'self_cuda_time_total'):
@@ -312,8 +404,21 @@ def profile_window(pipeline, pages, label):
                 return getattr(event, key)
         return 0.0
 
-    kernels = [(device_us(e), e.count, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    return [(device_us(e), e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+
+
+def profile_window(pipeline, pages, label):
+    """One torch.profiler window over one chunk: the device's busy share
+    of the window (device time of every CUDA activity over the window's
+    host time) and its top kernels by device time."""
+    from univer_ocr_tpu_torch.utils.profiling import device_trace
+    with device_trace(ROOT / 'build' / 'traces' / label) as prof:
+        t0 = time.perf_counter()
+        pipeline.ocr_pages(pages)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_activities(prof)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
     if busy_ms == 0:
         print(f'  {label} profiler: key_averages() shows no device time; '
@@ -326,6 +431,123 @@ def profile_window(pipeline, pages, label):
     for us, n, name in top:
         print(f'    {us / 1e3:9.3f} ms x{n:<5d} {name[:110]}', flush=True)
     return busy_ms / window_ms
+
+
+def decode_timing(rng):
+    """The flat run-length decode (fused_tail.decode_ids_device) on the
+    card at the fused tail's (64 lines, 2048 columns), on run-structured
+    ids (glyph runs of 1-14 columns, tab runs, ragged valid widths):
+    CUDA-event ms per call, the device time per call summed over its
+    activities (torch.profiler), and its bound (bytes: the ids and
+    validity read once, the glyphs written once)."""
+    from univer_ocr_tpu_torch.models import fused_tail
+    n, w = DEVICE_LINES, fused_tail.CHAR_POOL_WIDTH
+    ids = np.stack([np.repeat(rng.integers(0, 162, w),
+                              rng.integers(1, 15, w))[:w] for _ in range(n)])
+    valid = np.arange(w)[None, :] < rng.integers(w // 4, w, (n, 1))
+    ids_t = torch.tensor(ids, device='cuda')
+    valid_t = torch.tensor(valid, device='cuda')
+    def decode():
+        return fused_tail.decode_ids_device(ids_t, valid_t, 4)
+
+    # CUDA events over back-to-back calls read the host's dispatch of its
+    # ~40 small ops as much as the device; the profiler reads the device
+    t = {'shape': [n, w + 1], 'ms': cuda_ms(decode)}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            decode()
+        torch.cuda.synchronize()
+    acts = device_activities(prof)
+    t['device_ms'] = sum(us for us, _, _ in acts) / 20 / 1e3
+    t['device_activities'] = sum(c for _, c, _ in acts) / 20
+    n_bytes = ids_t.numel() * 8 + valid_t.numel() + n * (
+        4 * fused_tail.MAX_GLYPHS + 5)
+    t['bound_ms'], t['bound_by'] = bound_ms(n_bytes, 0)
+    print(f'  flat decode {json.dumps(t)}', flush=True)
+    return t
+
+
+def single_page_latency(pipeline, pages, label):
+    """Median host ms of LATENCY_CALLS one-page calls (cycling through the
+    pages), after one warm call per page."""
+    for page in pages:
+        pipeline.ocr_pages([page])
+    times = []
+    for i in range(LATENCY_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.ocr_pages([pages[i % len(pages)]])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    median = float(np.median(times))
+    print(f'  {label}: single-page latency median {median:.2f} ms over '
+          f'{LATENCY_CALLS} calls (min {min(times):.2f}, max '
+          f'{max(times):.2f})', flush=True)
+    return median
+
+
+def compare_plans(pipeline, pages):
+    """The device paragraph planners on the card against the same
+    planners on the CPU, on the paragraph masks the card's front gives
+    the pages: the chunk planner over all of them, the chain's planner
+    on each.  Labels, counts and integer fields must be equal, float
+    fields within PLAN_TOL; a difference is printed by planner, page and
+    field.  Returns the chunk planner's component count per page."""
+    from univer_ocr_tpu_torch.models.device_cascade import (
+        PARAGRAPH_FLT_FIELDS, PARAGRAPH_INT_FIELDS, device_chunk_plans,
+        device_page_plans)
+    fields = PARAGRAPH_INT_FIELDS + PARAGRAPH_FLT_FIELDS + ('root',)
+    _, para = pipeline.front_resident(pipeline._upload_pages(pages))
+    masks = para[..., 0].float()
+    menu = tuple(pipeline.line_shape_menu)
+    K = pipeline.CHUNK_PLAN_K
+    hb, wb = menu[-1]
+    runs = {'chunk': [device_chunk_plans(m, menu, k_max=K)
+                      for m in (masks, masks.cpu())]}
+    for i in range(len(pages)):
+        runs[f'page {i}'] = [
+            device_page_plans(m[i], hb, wb, k_max=2 * pipeline.DEVICE_BATCH)
+            for m in (masks, masks.cpu())]
+    differ, float_err = [], 0.0
+    for name, (card, cpu) in runs.items():
+        if name == 'chunk':
+            lab, plans, _, n_comp, conv = card
+            lab_c, plans_c, _, n_comp_c, conv_c = cpu
+        else:
+            lab, _, plans, n_comp, conv = card
+            lab_c, _, plans_c, n_comp_c, conv_c = cpu
+            plans, plans_c = plans[None], plans_c[None]
+            n_comp, n_comp_c = n_comp[None], n_comp_c[None]
+            conv, conv_c = bool(conv), bool(conv_c)
+        if not torch.equal(lab.cpu(), lab_c) or conv != conv_c:
+            raise AssertionError(f'planner {name}: labels or convergence '
+                                 f'differ on the card')
+        if not torch.equal(n_comp.cpu(), n_comp_c):
+            raise AssertionError(f'planner {name}: component counts differ')
+        plans = plans.cpu()
+        for page in range(plans.shape[0]):
+            live = slice(0, int(n_comp_c[page]))
+            for ci, field in enumerate(fields[:plans.shape[2]]):
+                a, b = plans[page, live, ci], plans_c[page, live, ci]
+                if field in PARAGRAPH_FLT_FIELDS:
+                    float_err = max(float_err, (a - b).abs().max().item()
+                                    if a.numel() else 0.0)
+                elif not torch.equal(a, b):
+                    print(f'  planner {name} page {page} field {field}: '
+                          f'card {a.tolist()} cpu {b.tolist()}', flush=True)
+                    differ.append((name, page, field))
+        print(f'  planner {name}: components {n_comp_c.tolist()}, '
+              f'converged {conv_c}', flush=True)
+    print(f'  planners, card against CPU: integer fields '
+          f'{"equal" if not differ else differ}, float fields '
+          f'max abs err {float_err:.3e}', flush=True)
+    if differ:
+        raise AssertionError(f'integer plan fields differ: {differ}')
+    if float_err > PLAN_TOL:
+        raise AssertionError(f'float plan fields differ by {float_err}')
+    return runs['chunk'][1][3].tolist()
 
 
 def main():
@@ -378,10 +600,28 @@ def main():
     char_prep = kernels.prepare_char_head(*char_w)
     rng = np.random.default_rng(0)
     errors = {}
+    with np.load(FIXTURE) as f:
+        fixture_pages = f['pages']
+        expected = json.loads(str(f['texts']))
+        expected_device = json.loads(str(f['device_texts']))
+        expected_tables = json.loads(str(f['tables_texts']))
+        expected_fused = json.loads(str(f['fused_texts']))
+        expected_chain = json.loads(str(f['chain_texts']))
+        chain_fallbacks = json.loads(str(f['chain_fallbacks']))
+    pages = [fixture_pages[i % len(fixture_pages)][None, :, :, None]
+             for i in range(CHUNK)]
+    fixture_list = pages[:len(fixture_pages)]
+
+    def pipeline(precision, chunk=CHUNK, **kwargs):
+        return OCRPipeline(PAGE_SHAPE, weights=params, chunk=chunk,
+                           workers=8, collapse_runs=4, precision=precision,
+                           device='cuda', **kwargs)
 
     with phase('kernels'), backend_flags('highest'):
         err = 0.0
-        for shape in [(CHUNK,) + PAGE_SHAPE[1:], (2, 100, 203, 1)]:
+        # a chunk, one page (the single-page chain) and a ragged shape
+        for shape in [(CHUNK,) + PAGE_SHAPE[1:], PAGE_SHAPE,
+                      (2, 100, 203, 1)]:
             x = torch.tensor(rng.random(shape, dtype=np.float32),
                              device='cuda')
             err = max(err, compare(
@@ -402,24 +642,19 @@ def main():
             if agree < ARGMAX_AGREEMENT:
                 raise AssertionError('fused_char_head argmax disagrees')
         errors['fused_char_head'] = err
+        with pipeline('highest', **FUSED_MODE) as planner:
+            components = compare_plans(planner, fixture_list)
 
-    with np.load(FIXTURE) as f:
-        fixture_pages = f['pages']
-        expected = json.loads(str(f['texts']))
-        expected_device = json.loads(str(f['device_texts']))
-        expected_tables = json.loads(str(f['tables_texts']))
-    pages = [fixture_pages[i % len(fixture_pages)][None, :, :, None]
-             for i in range(CHUNK)]
-
-    def pipeline(precision, **kwargs):
-        return OCRPipeline(PAGE_SHAPE, weights=params, chunk=CHUNK,
-                           workers=8, collapse_runs=4, precision=precision,
-                           device='cuda', **kwargs)
+    def kernels_launched(label):
+        for name in ('fused_monochrome', 'fused_char_head'):
+            if launches[label].get(name, 0) < 1:
+                raise AssertionError(f'{name} did not launch on {label}')
 
     launches = {}
     with pipeline('highest') as host, \
             pipeline('highest', **DEVICE_CASCADE) as device, \
-            pipeline('highest', **TABLES_MODE) as tables:
+            pipeline('highest', **TABLES_MODE) as tables, \
+            pipeline('highest', **FUSED_MODE) as fused:
         with phase('path'):
             results, launches['path'], widths = counted_run(host, pages)
             print(f'path launches: {launches["path"]}; fused_char_head by '
@@ -457,6 +692,114 @@ def main():
                     raise AssertionError(f'{name} did not launch on the '
                                          f'tables path')
 
+        with phase('fused_path'):
+            if not (fused.fused_tail and fused._device_planner):
+                raise AssertionError('the default pipeline is not fused')
+            fused.host_syncs.clear()
+            results, launches['fused_path'], fused_widths = counted_run(
+                fused, pages)
+            print(f'fused_path launches: {launches["fused_path"]}; '
+                  f'fused_char_head by width: {fused_widths}', flush=True)
+            print(f'fused_path escalation_stats: '
+                  f'{json.dumps(fused.escalation_stats)}', flush=True)
+            print(f'fused_path host syncs: {dict(fused.host_syncs)}, '
+                  f'{syncs_per_launch(fused.host_syncs)} per paragraph '
+                  f'launch', flush=True)
+            check_text('fused_path', results, expected_fused)
+            kernels_launched('fused_path')
+            if fused.escalation_stats.get('chain_fallback', 0):
+                raise AssertionError('fused_path: a page left the device '
+                                     'planner')
+            sync_census(fused, pages, 'fused')
+            # three chunks in flight (the dispatcher runs one chunk ahead
+            # of the collect, and the queue holds two): the device memory
+            # they take, the fused Char head's workspace included
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            three = fused.ocr_pages(pages * 3)
+            torch.cuda.synchronize()
+            print(f'fused_path, 3 chunks in one call: peak device memory '
+                  f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB '
+                  f'allocated, {torch.cuda.max_memory_reserved() / 2**30:.3f}'
+                  f' GiB reserved', flush=True)
+            check_text('fused_path, 3 chunks', three, expected_fused,
+                       3 * CHUNK)
+            # the chunk planner's per-page fallback: its cap cut to the
+            # fewest components of a fixture page, so that in one chunk
+            # the pages with more are planned on the host (the fused
+            # stages on uploaded blobs) beside pages planned on the card;
+            # the host-planned fused text is the tables mode's (JAX's
+            # test_fused_pipeline_matches_classic)
+            with pipeline('highest', **FUSED_MODE) as cut:
+                cut.CHUNK_PLAN_K = min(components)
+                over = [components[i % len(components)] > cut.CHUNK_PLAN_K
+                        for i in range(CHUNK)]
+                results, launches['fused_fallback'], _ = counted_run(
+                    cut, pages)
+                fell = cut.escalation_stats.get('chain_fallback', 0)
+            print(f'fused_path, chunk planner cut to {min(components)} '
+                  f'components (pages have {components}): {fell} pages '
+                  f'planned on the host, launches '
+                  f'{launches["fused_fallback"]}', flush=True)
+            if not 0 < fell == sum(over) < CHUNK:
+                raise AssertionError(f'fused_path: {fell} pages fell back, '
+                                     f'{sum(over)} expected')
+            check_text('fused_path with fallbacks', results, [
+                (expected_tables if over[i] else expected_fused)[
+                    i % len(expected_fused)]
+                for i in range(CHUNK)])
+            kernels_launched('fused_fallback')
+
+        with phase('chain_path'):
+            fused.host_syncs.clear()
+            fell_back = []
+            launches['chain_path'] = Counter()
+            results = []
+            chain_widths = Counter()
+            for page in fixture_list:
+                before = fused.escalation_stats.get('chain_fallback', 0)
+                result, counts, page_widths = counted_run(fused, [page])
+                results.extend(result)
+                launches['chain_path'].update(counts)
+                chain_widths.update(page_widths)
+                fell_back.append(
+                    fused.escalation_stats.get('chain_fallback', 0) > before)
+            launches['chain_path'] = dict(launches['chain_path'])
+            chain_widths = dict(sorted(chain_widths.items()))
+            print(f'chain_path launches: {launches["chain_path"]}; '
+                  f'fused_char_head by width: {chain_widths}', flush=True)
+            print(f'chain_path escalation_stats: '
+                  f'{json.dumps(fused.escalation_stats)}', flush=True)
+            print(f'chain_path host syncs: {dict(fused.host_syncs)}',
+                  flush=True)
+            print(f'chain_path fallbacks {fell_back}, JAX\'s '
+                  f'{chain_fallbacks}', flush=True)
+            check_text('chain_path', results, expected_chain,
+                       len(fixture_list))
+            kernels_launched('chain_path')
+            if fell_back != chain_fallbacks:
+                raise AssertionError('chain_path: the fallbacks differ from '
+                                     'JAX\'s')
+            sync_census(fused, fixture_list, 'chain', single=True)
+            # the chain's not-ok fallback: 48 components (more than the
+            # chain's 2 * DEVICE_BATCH) send the page through the
+            # host-planned fused dispatch; its text must be the
+            # device-planned chunk path's (48 fit CHUNK_PLAN_K)
+            grid = blob_grid(6, 8)
+            before = fused.escalation_stats.get('chain_fallback', 0)
+            single, launches['chain_fallback'], _ = counted_run(
+                fused, [grid])
+            fell = fused.escalation_stats.get('chain_fallback', 0) - before
+            chunked = fused.ocr_pages([grid, np.ones_like(grid)])[0]
+            print(f'chain_path, 48-blob page: fallbacks {fell}, '
+                  f'{len(single[0])} paragraphs alone, {len(chunked)} in a '
+                  f'chunk, equal {single[0] == chunked}, launches '
+                  f'{launches["chain_fallback"]}', flush=True)
+            if fell != 1 or single[0] != chunked or len(chunked) != 48:
+                raise AssertionError('chain_path: the 48-blob page did not '
+                                     'fall back to the chunk path\'s text')
+            kernels_launched('chain_fallback')
+
         with phase('times'), backend_flags('highest'):
             print(f'times on: {card}', flush=True)
             x = torch.tensor(rng.random((CHUNK,) + PAGE_SHAPE[1:],
@@ -477,7 +820,8 @@ def main():
             for n, width in sorted(
                     {(HOST_LINES, w) for w in widths}
                     | {(DEVICE_LINES, w)
-                       for w in set(line_widths) | set(table_widths)}):
+                       for w in set(line_widths) | set(table_widths)
+                       | set(fused_widths) | set(chain_widths)}):
                 xc = char_inputs(params, rng, n, width)
                 cols = xc.shape[0] * xc.shape[1]
                 t = {
@@ -497,8 +841,10 @@ def main():
                 chars[n, width] = t
                 print(f'  fused_char_head {t}', flush=True)
             # the JAX device cascade's Char head (the width-8 convolution
-            # form) beside the kernel at the line stage's shape
-            for width, n in table_widths.items():
+            # form) beside the kernel at the line stage's and the fused
+            # tail's shapes
+            for width, n in sorted((Counter(table_widths)
+                                    + Counter(fused_widths)).items()):
                 xc = char_inputs(params, rng, DEVICE_LINES, width)
                 t = {'launches': n, 'shape': list(xc.shape),
                      'fused_char_head_ms': chars[DEVICE_LINES, width]['ms'],
@@ -509,6 +855,7 @@ def main():
                         lambda: char_head_conv(params, xc, 'bf16'))
                 print(f'  conv head vs fused_char_head at W={width}: {t}',
                       flush=True)
+            decode_timing(rng)
             rates = {'host highest': timed_runs(host, pages, 'host highest',
                                                 expected),
                      'device highest': timed_runs(device, pages,
@@ -516,20 +863,35 @@ def main():
                                                   expected_device),
                      'tables highest': timed_runs(tables, pages,
                                                   'tables highest',
-                                                  expected_tables)}
+                                                  expected_tables),
+                     'fused highest': timed_runs(fused, pages,
+                                                 'fused highest',
+                                                 expected_fused)}
             for label, kwargs, highest in (
                     ('host bf16', {}, expected),
                     ('device bf16', DEVICE_CASCADE, expected_device),
-                    ('tables bf16', TABLES_MODE, expected_tables)):
+                    ('tables bf16', TABLES_MODE, expected_tables),
+                    ('fused bf16', FUSED_MODE, expected_fused)):
                 with pipeline('bf16', **kwargs) as pl:
                     rates[label] = timed_runs(pl, pages, label, highest)
             print('pages/s ' + json.dumps(
                 {label: r[0] for label, r in rates.items()}), flush=True)
             for label, pl in (('host', host), ('device', device),
-                              ('tables', tables)):
+                              ('tables', tables), ('fused', fused)):
                 profile_window(pl, pages, label)
             for label, pl in (('device', device), ('tables', tables)):
                 sync_census(pl, pages, label)
+            latency = {}
+            for precision in ('highest', 'bf16'):
+                with pipeline(precision, **FUSED_MODE) as chain, \
+                        pipeline(precision, chunk=1, **TABLES_MODE) as one:
+                    latency[f'chain {precision}'] = single_page_latency(
+                        chain, fixture_list, f'chain {precision}')
+                    latency[f'tables chunk 1 {precision}'] = (
+                        single_page_latency(one, fixture_list,
+                                            f'tables chunk 1 {precision}'))
+            print('single-page latency ms ' + json.dumps(latency),
+                  flush=True)
 
     def char_mix(n_lines, mix, label):
         """The Char head per launch over one path's width mix."""
@@ -551,7 +913,9 @@ def main():
               f'{out["bound_ffma_ms"] * total:.4f} ms FFMA bound', flush=True)
         return out
 
-    char = char_mix(DEVICE_LINES, table_widths, 'tables path')
+    char = char_mix(DEVICE_LINES, fused_widths, 'fused path')
+    chain_char = char_mix(DEVICE_LINES, chain_widths, 'chain path')
+    tables_char = char_mix(DEVICE_LINES, table_widths, 'tables path')
     device_char = char_mix(DEVICE_LINES, line_widths, 'device path')
     host_char = char_mix(HOST_LINES, widths, 'host path')
     by_path = {name: {path: counts.get(name, 0)
@@ -564,7 +928,7 @@ def main():
         {'name': 'fused_monochrome', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/fused_monochrome.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/fused_conv.py:87',
-         'launches': by_path['fused_monochrome']['tables_path'],
+         'launches': by_path['fused_monochrome']['fused_path'],
          'launches_by_path': by_path['fused_monochrome'],
          'max_abs_err': errors['fused_monochrome'],
          'ms': mono['ms'], 'plain_ms': mono['plain_ms'],
@@ -573,13 +937,14 @@ def main():
         {'name': 'fused_char_head', 'route': 'cuda',
          'source': 'univer_ocr_tpu_torch/csrc/char_head.cu',
          'replaces': 'univer_ocr_tpu/ops/pallas/char_head.py:61',
-         'launches': by_path['fused_char_head']['tables_path'],
+         'launches': by_path['fused_char_head']['fused_path'],
          'launches_by_path': by_path['fused_char_head'],
          'max_abs_err': errors['fused_char_head'],
          'ms': char['ms'], 'plain_ms': char['plain_ms'],
          'bound_ms': char['bound_ms'], 'bound_by': char['bound_by'],
          'bound_ffma_ms': char['bound_ffma_ms'], 'library_ms': None,
-         'widths': char['widths'], 'device_path': device_char,
+         'widths': char['widths'], 'chain_path': chain_char,
+         'tables_path': tables_char, 'device_path': device_char,
          'host_path': host_char},
     ]}), flush=True)
     print(card, flush=True)

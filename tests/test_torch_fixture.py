@@ -3,11 +3,18 @@ smoke_pages.npz: 4 synthetic pages (496x736 uint8, rendered by the JAX
 package's generator from a fixed seed, as bench.py renders its pages),
 the text the JAX host cascade gives for each on the CPU (`texts`), the
 text its device cascade gives in the parity mode (`device_texts`:
-`exact_bands=True`, 'highest', `collapse_runs=4`) and in the tables mode
+`exact_bands=True`, 'highest', `collapse_runs=4`), in the tables mode
 (`tables_texts`: `exact_bands=False`, sampler 'twopass',
-`fused_tail=False`, 'highest', `collapse_runs=4`).  chip_smoke.py drives
-the port on the card with these pages, which the card machine cannot
-render (it has no Pillow and no fonts).
+`fused_tail=False`, 'highest', `collapse_runs=4`) and in its serving
+default, 'highest', `collapse_runs=4`: the 4 pages in one call, through
+the device chunk planner and the fused tail (`fused_texts`), and each page
+alone, through the single-page chain (`chain_texts`), with whether the
+chain left the page to its host-planned fallback (`chain_fallbacks`);
+and the serving default's chunk text of the first 2 pages in 'bf16'
+(`fused_bf16_texts`, the plain layers in bfloat16 as JAX runs them on the
+CPU).
+chip_smoke.py drives the port on the card with these pages, which the
+card machine cannot render (it has no Pillow and no fonts).
 
 Regenerate with `JAX_PLATFORMS=cpu python tests/test_torch_fixture.py`."""
 
@@ -66,6 +73,41 @@ def test_fixture_holds_the_tables_text():
                                                      for page in device_texts]
 
 
+def test_fixture_holds_the_fused_text():
+    """The serving default's chunk text keeps the tables mode's
+    paragraphs, each with some lines."""
+    _, tables_texts = load_fixture('tables_texts')
+    _, fused_texts = load_fixture('fused_texts')
+    _well_formed(fused_texts)
+    assert [len(page) for page in fused_texts] == [len(page)
+                                                    for page in tables_texts]
+
+
+def test_fixture_holds_the_chain_text():
+    """The single-page chain's text of each page: the chunk path's
+    paragraphs (its planner labels the same mask), and a fallback flag per
+    page."""
+    _, fused_texts = load_fixture('fused_texts')
+    _, chain_texts = load_fixture('chain_texts')
+    _, fallbacks = load_fixture('chain_fallbacks')
+    _well_formed(chain_texts)
+    assert [len(page) for page in chain_texts] == [len(page)
+                                                    for page in fused_texts]
+    assert len(fallbacks) == N_PAGES
+    assert all(isinstance(flag, bool) for flag in fallbacks)
+
+
+def test_fixture_holds_the_fused_bf16_text():
+    """The serving default's 'bf16' text of the first 2 pages keeps the
+    'highest' text's paragraphs."""
+    _, fused_texts = load_fixture('fused_texts')
+    _, bf16_texts = load_fixture('fused_bf16_texts')
+    assert len(bf16_texts) == 2
+    assert sum(len(para) for page in bf16_texts for para in page) > 0
+    assert [len(page) for page in bf16_texts] == [len(page)
+                                                  for page in fused_texts[:2]]
+
+
 def test_port_reproduces_the_fixture_text_on_cpu():
     from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
     from univer_ocr_tpu_torch.weights import load_checkpoint
@@ -79,7 +121,8 @@ def test_port_reproduces_the_fixture_text_on_cpu():
 
 def generate():
     """Render the pages and record the text of the JAX host cascade and
-    of both modes of its device cascade."""
+    of its device cascade's parity mode, tables mode and serving default
+    (chunk and single page)."""
     import jax
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, str(ROOT))
@@ -108,12 +151,33 @@ def generate():
                          sampler='twopass', fused_tail=False,
                          precision='highest', collapse_runs=4)
     tables_texts = tables.ocr_pages([p[None, :, :, None] for p in pages])
+    fused = OCRPipeline(PAGE_SHAPE, weights=weights, chunk=N_PAGES,
+                        workers=2, device_cascade=True, precision='highest',
+                        collapse_runs=4)
+    assert fused.fused_tail and fused._single_page_chain is not None
+    fused_texts = fused.ocr_pages([p[None, :, :, None] for p in pages])
+    chain_texts, chain_fallbacks = [], []
+    for p in pages:
+        before = fused.escalation_stats.get('chain_fallback', 0)
+        chain_texts.extend(fused.ocr_pages([p[None, :, :, None]]))
+        chain_fallbacks.append(
+            fused.escalation_stats.get('chain_fallback', 0) > before)
+    fused_bf16 = OCRPipeline(PAGE_SHAPE, weights=weights, chunk=N_PAGES,
+                             workers=2, device_cascade=True, precision='bf16',
+                             collapse_runs=4)
+    fused_bf16_texts = fused_bf16.ocr_pages(
+        [p[None, :, :, None] for p in pages[:2]])
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+
+    def text(value):
+        return np.array(json.dumps(value, ensure_ascii=False))
+
     np.savez_compressed(
-        FIXTURE, pages=pages,
-        texts=np.array(json.dumps(texts, ensure_ascii=False)),
-        device_texts=np.array(json.dumps(device_texts, ensure_ascii=False)),
-        tables_texts=np.array(json.dumps(tables_texts, ensure_ascii=False)))
+        FIXTURE, pages=pages, texts=text(texts),
+        device_texts=text(device_texts), tables_texts=text(tables_texts),
+        fused_texts=text(fused_texts), chain_texts=text(chain_texts),
+        chain_fallbacks=text(chain_fallbacks),
+        fused_bf16_texts=text(fused_bf16_texts))
     print(f'{FIXTURE}: {FIXTURE.stat().st_size} bytes, '
           f'{sum(len(p) for p in texts)} paragraphs')
 

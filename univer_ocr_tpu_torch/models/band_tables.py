@@ -418,7 +418,7 @@ def _seg_cummin(lab, occ, reverse, axis=2, offsets=None):
     return v.flip(axis) if reverse else v
 
 
-def grid_ccl_labels(occ, max_iters=None, syncs=None):
+def grid_ccl_labels(occ, max_iters=None, syncs=None, column_scan=False):
     """8-connected component labels of (B, L, G, C) bool grids: occupied
     cells get their component's smallest linear index y*G+g (scipy's
     component order), unoccupied ones _CCL_BIG.  Returns (labels int64,
@@ -428,9 +428,13 @@ def grid_ccl_labels(occ, max_iters=None, syncs=None):
     A sweep is the JAX package's: the min over each cell's 3x3
     neighbourhood (a max-pool of the negated labels, padded with -inf as
     JAX pads with _CCL_BIG), then segmented min-scans along the groups,
-    both ways.  Labels run as float64 planes (B, C, L, G), exact for
-    these integers.  Sweeps run in blocks of GRID_CCL_BLOCK with one host
-    sync per block, counted in `syncs['grid_ccl_block']` when given."""
+    both ways, and with column_scan=True along the rows too, both ways
+    (a page-sized component then converges in as many sweeps as its
+    outline turns, not as it has rows).  Labels run as float64 planes
+    (B, C, L, G), exact for these integers.  Sweeps run in blocks of
+    GRID_CCL_BLOCK with one host sync per block, counted in `syncs` when
+    given: as 'page_ccl_block' with the row scans (the page CCL), else as
+    'grid_ccl_block'."""
     cap = GRID_CCL_MAX_ITERS if max_iters is None else max_iters
     B, L, G, C = occ.shape
     dev = occ.device
@@ -439,14 +443,18 @@ def grid_ccl_labels(occ, max_iters=None, syncs=None):
     planes = occ.permute(0, 3, 1, 2)                              # (B,C,L,G)
     big = float(_CCL_BIG)
     lab = torch.where(planes, lin.to(torch.float64), big)
-    offsets = {reverse: _segment_offsets(planes, 3, reverse, torch.float64)
-               for reverse in (False, True)}
+    axes = (3, 2) if column_scan else (3,)
+    offsets = {(axis, reverse): _segment_offsets(planes, axis, reverse,
+                                                 torch.float64)
+               for axis in axes for reverse in (False, True)}
 
     def sweep(lab):
         m = -torch.nn.functional.max_pool2d(-lab, 3, stride=1, padding=1)
         lab = torch.where(planes, m, big)
-        for reverse in (False, True):
-            lab = _seg_cummin(lab, planes, reverse, 3, offsets[reverse])
+        for axis in axes:
+            for reverse in (False, True):
+                lab = _seg_cummin(lab, planes, reverse, axis,
+                                  offsets[axis, reverse])
         return lab
 
     done, changed = 0, True
@@ -455,7 +463,7 @@ def grid_ccl_labels(occ, max_iters=None, syncs=None):
             prev, lab = lab, sweep(lab)
             done += 1
         if syncs is not None:
-            syncs['grid_ccl_block'] += 1
+            syncs['page_ccl_block' if column_scan else 'grid_ccl_block'] += 1
         changed = bool((lab != prev).any())
     return lab.to(torch.int64).permute(0, 2, 3, 1), lin, not changed
 

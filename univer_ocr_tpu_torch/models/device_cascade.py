@@ -30,16 +30,25 @@ pixel where the JAX package bit-packs them (the bits are the same); in
 the tables mode (band_tables.py) it returns the sheared crops and the
 tables payload.
 
+The device paragraph planners (`device_page_plans`, `device_chunk_plans`)
+label the paragraph mask on the device (the page CCL: band_tables.
+grid_ccl_labels with the row scans) and compute what the host planner
+(OCRPipeline._page_paragraph_plans) computes for each component, so the
+serving default pulls one small plan matrix instead of the mask.
+
 The forwards' convolutions are full float32 in 'highest' only while TF32
 is off: run the stages inside `ops.precision.backend_flags(precision)`
 (OCRPipeline.ocr_pages holds it for every thread of the cascade).
 """
 
+import functools
+
 import numpy as np
 import torch
 
 from ..ops import precision as precision_policy
-from .band_tables import pack_tables_payload, tables_state
+from .band_tables import (_CCL_BIG, _shear_span, grid_ccl_labels,
+                          pack_tables_payload, tables_state)
 from .fastpath import _mask_hw, line_forward_masked
 
 # ---------------------------------------------------------------------------
@@ -544,6 +553,38 @@ def _finish_paragraph_stage(params, crops, h_valid, w_valid, precision=None,
     return crops, pack_tables_payload(*state)
 
 
+def extract_paragraph_crops(mono_stack, blob, page_idx,
+                            src_y0, src_x0, src_h, src_w,
+                            cos_a, sin_a, off_y, off_x,
+                            out_y0, out_x0, out_h, out_w,
+                            pad_y, pad_x, precision=None, sampler='gather'):
+    """Paragraph crops with the blobs uploaded, by `sampler` ('gather' or
+    'twopass')."""
+    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
+            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x)
+    if sampler == 'twopass':
+        return twopass_paragraph_crops(mono_stack, blob, *args,
+                                       precision=precision)
+    return rotated_paragraph_crops(mono_stack, blob, *args)
+
+
+def extract_paragraph_crops_resident(mono_stack, para_stack, page_idx,
+                                     src_y0, src_x0, src_h, src_w,
+                                     cos_a, sin_a, off_y, off_x,
+                                     out_y0, out_x0, out_h, out_w,
+                                     pad_y, pad_x, out_hb, out_wb,
+                                     precision=None, sampler='gather'):
+    """Paragraph crops with the blobs read from the resident paragraph
+    mask, by `sampler`."""
+    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
+            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x,
+            out_hb, out_wb)
+    if sampler == 'twopass':
+        return twopass_paragraph_crops_resident(
+            mono_stack, para_stack, *args, precision=precision)
+    return rotated_paragraph_crops_resident(mono_stack, para_stack, *args)
+
+
 def paragraph_stage(params, mono_stack, blob, page_idx,
                     src_y0, src_x0, src_h, src_w,
                     cos_a, sin_a, off_y, off_x, out_y0, out_x0,
@@ -553,13 +594,10 @@ def paragraph_stage(params, mono_stack, blob, page_idx,
     """Deskewed-paragraph stage with the blobs uploaded: crop resampling
     by `sampler` ('gather' or 'twopass') + masked Line forward + band
     threshold.  Returns (crops, band masks | tables payload)."""
-    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
-            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x)
-    if sampler == 'twopass':
-        crops = twopass_paragraph_crops(mono_stack, blob, *args,
-                                        precision=precision)
-    else:
-        crops = rotated_paragraph_crops(mono_stack, blob, *args)
+    crops = extract_paragraph_crops(
+        mono_stack, blob, page_idx, src_y0, src_x0, src_h, src_w, cos_a,
+        sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x,
+        precision=precision, sampler=sampler)
     return _finish_paragraph_stage(params, crops, h_valid, w_valid,
                                    precision=precision, tables=tables,
                                    syncs=syncs)
@@ -574,15 +612,238 @@ def paragraph_stage_rot_resident(params, mono_stack, para_stack, page_idx,
                                  tables=False, sampler='gather', syncs=None):
     """paragraph_stage without the blob upload (bboxes that hold one
     component): the blob is read from the resident paragraph mask."""
-    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
-            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x,
-            out_hb, out_wb)
-    if sampler == 'twopass':
-        crops = twopass_paragraph_crops_resident(
-            mono_stack, para_stack, *args, precision=precision)
-    else:
-        crops = rotated_paragraph_crops_resident(mono_stack, para_stack,
-                                                 *args)
+    crops = extract_paragraph_crops_resident(
+        mono_stack, para_stack, page_idx, src_y0, src_x0, src_h, src_w,
+        cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y,
+        pad_x, out_hb, out_wb, precision=precision, sampler=sampler)
     return _finish_paragraph_stage(params, crops, h_valid, w_valid,
                                    precision=precision, tables=tables,
                                    syncs=syncs)
+
+
+# ---------------------------------------------------------------------------
+# Device paragraph planner: the page CCL and _page_paragraph_plans' plan
+# arithmetic ('twopass' branch) on the card, where the mask already is
+# ---------------------------------------------------------------------------
+
+#: sweep cap of the page CCL; hitting it flags the page for the host
+#: planner
+PAGE_CCL_MAX_ITERS = 96
+
+
+@functools.lru_cache(maxsize=None)
+def _menu_table(menu, device):
+    """(hb, wb) columns of a crop-shape menu on `device`, copied once."""
+    return torch.as_tensor(np.asarray(menu, np.int64).T, device=device)
+
+
+def _page_component_plans(lab, menu, k_max):
+    """Paragraph-stage plan rows of each page from its CCL labels.
+
+    lab (B, H, W) int64 labels of grid_ccl_labels; menu: a tuple of
+    (hb, wb) crop shapes.  Returns (roots (B, K) int64, the components'
+    root labels in raster order, _CCL_BIG past the last; plan (B, K, 18)
+    float32 rows: PARAGRAPH_INT_FIELDS, PARAGRAPH_FLT_FIELDS and the root
+    label (-1 on dead slots); menu_idx (B, K) int64 into `menu`; n_comp
+    (B,)).
+
+    The field arithmetic of OCRPipeline._page_paragraph_plans (the
+    'twopass' branch): the 1-degree deskew sweep of find_rotation_angle
+    over each row's extreme pixels, rotate_affine's geometry, the
+    analytic rotated bbox with its (|cos| + |sin|) / 2 margin, the centre
+    pad to a multiple of 16, and _line_menu_shape's pick with the shear
+    margin, every clamp to the chosen entry.  Dead slots carry a 4x4
+    filler crop.  The JAX package builds a (K, H, W) membership tensor
+    per page; here the bboxes and per-row extremes are integer
+    scatter_reduces keyed by each label's rank among the roots."""
+    B, H, W = lab.shape
+    K = k_max
+    dev = lab.device
+    flat = lab.reshape(B, H * W)
+    lin = torch.arange(H * W, device=dev)
+    is_root = (flat == lin) & (flat < _CCL_BIG)
+    n_comp = is_root.sum(dim=1)
+    rank = torch.cumsum(is_root, dim=1) - 1
+    roots = torch.full((B, K + 1), _CCL_BIG, dtype=torch.int64, device=dev)
+    roots.scatter_(1, torch.where(is_root & (rank < K), rank, K),
+                   lin.expand(B, -1))
+    roots = roots[:, :K]
+    live = roots < _CCL_BIG
+
+    member = flat < _CCL_BIG
+    slot = torch.gather(rank, 1, torch.where(member, flat, 0))
+    slot = torch.where(member & (slot < K), slot, K)
+    ys, xs = lin // W, lin % W
+    key = slot * H + ys                                      # (slot, row)
+
+    def row_extreme(init, reduce):
+        out = torch.full((B, (K + 1) * H), init, dtype=torch.int64,
+                         device=dev)
+        out.scatter_reduce_(1, key, xs.expand(B, -1), reduce)
+        return out.reshape(B, K + 1, H)[:, :K]
+
+    xmin_r = row_extreme(W, 'amin')                          # (B, K, H)
+    xmax_r = row_extreme(-1, 'amax')
+    rows_any = xmax_r >= 0
+    ih = torch.arange(H, device=dev)
+    y0 = torch.where(rows_any, ih, H).amin(dim=2)
+    y1 = torch.where(rows_any, ih, -1).amax(dim=2)
+    x0 = xmin_r.amin(dim=2)
+    x1 = xmax_r.amax(dim=2)
+    h = torch.clamp(y1 - y0 + 1, min=1)
+    w = torch.clamp(x1 - x0 + 1, min=1)
+    hf, wf = h.to(torch.float32), w.to(torch.float32)
+
+    # deskew angle: the height of y*cos - x*sin over each row's extreme
+    # pixels (bbox-local) on a 1-degree grid over [0, 180]
+    f32 = torch.float32
+    ysl = (ih - y0[..., None]).to(f32)                       # (B, K, H)
+    xlo = (xmin_r - x0[..., None]).to(f32)
+    xhi = (xmax_r - x0[..., None]).to(f32)
+    ang = torch.deg2rad(torch.arange(0.0, 181.0, 1.0, dtype=f32,
+                                     device=dev))
+    tc, ts = torch.cos(ang), torch.sin(ang)
+    big = 3.0e8
+    vm = rows_any[..., None]
+
+    def proj(x):
+        return ysl[..., None] * tc - x[..., None] * ts       # (B, K, H, A)
+
+    plo, phi = proj(xlo), proj(xhi)
+    pmax = torch.maximum(torch.where(vm, plo, -big).amax(dim=2),
+                         torch.where(vm, phi, -big).amax(dim=2))
+    pmin = torch.minimum(torch.where(vm, plo, big).amin(dim=2),
+                         torch.where(vm, phi, big).amin(dim=2))
+    del plo, phi
+    angle = torch.argmin(pmax - pmin, dim=2).to(f32)         # first minimum
+    level = (angle < 1.0) | (angle > 179.0)
+
+    # rotate_affine: the geometry of scipy's rotate(angle, reshape=True)
+    rad = torch.deg2rad(angle)
+    ca, sa = torch.cos(rad), torch.sin(rad)
+    zero = torch.zeros_like(hf)
+    cyc = torch.stack([zero, zero, hf, hf], dim=2)
+    cxc = torch.stack([zero, wf, zero, wf], dim=2)
+    py_c = ca[..., None] * cyc + sa[..., None] * cxc         # (B, K, 4)
+    px_c = -sa[..., None] * cyc + ca[..., None] * cxc
+    rh = torch.floor(py_c.amax(dim=2) - py_c.amin(dim=2) + 0.5).to(
+        torch.int64)
+    rw = torch.floor(px_c.amax(dim=2) - px_c.amin(dim=2) + 0.5).to(
+        torch.int64)
+    rhf, rwf = rh.to(f32), rw.to(f32)
+    off_y = (hf - 1.0) / 2.0 - (ca * (rhf - 1.0) / 2.0
+                                + sa * (rwf - 1.0) / 2.0)
+    off_x = (wf - 1.0) / 2.0 - (-sa * (rhf - 1.0) / 2.0
+                                + ca * (rwf - 1.0) / 2.0)
+
+    # the rotated bbox of the extreme pixels, plus the sampling margin
+    dy = ysl - off_y[..., None]
+    dlo = xlo - off_x[..., None]
+    dhi = xhi - off_x[..., None]
+    c3, s3 = ca[..., None], sa[..., None]
+
+    def extreme(lo, hi, fill, reduce):
+        pick = torch.minimum if reduce == 'amin' else torch.maximum
+        return pick(getattr(torch.where(rows_any, lo, fill), reduce)(dim=2),
+                    getattr(torch.where(rows_any, hi, fill), reduce)(dim=2))
+
+    py_lo, py_hi = c3 * dy - s3 * dlo, c3 * dy - s3 * dhi
+    px_lo, px_hi = s3 * dy + c3 * dlo, s3 * dy + c3 * dhi
+    py_min = extreme(py_lo, py_hi, big, 'amin')
+    py_max = extreme(py_lo, py_hi, -big, 'amax')
+    px_min = extreme(px_lo, px_hi, big, 'amin')
+    px_max = extreme(px_lo, px_hi, -big, 'amax')
+    marg = (ca.abs() + sa.abs()) / 2.0
+    ry0 = torch.clamp(torch.floor(py_min - marg), min=0.0).to(torch.int64)
+    rx0 = torch.clamp(torch.floor(px_min - marg), min=0.0).to(torch.int64)
+    ry1 = torch.minimum(torch.ceil(py_max + marg).to(torch.int64), rh - 1)
+    rx1 = torch.minimum(torch.ceil(px_max + marg).to(torch.int64), rw - 1)
+    out_h = ry1 - ry0 + 1
+    out_w = rx1 - rx0 + 1
+
+    # level paragraphs take the identity affine
+    ca = torch.where(level, 1.0, ca)
+    sa = torch.where(level, 0.0, sa)
+    off_y = torch.where(level, 0.0, off_y)
+    off_x = torch.where(level, 0.0, off_x)
+    ry0 = torch.where(level, 0, ry0)
+    rx0 = torch.where(level, 0, rx0)
+    out_h = torch.where(level, h, out_h)
+    out_w = torch.where(level, w, out_w)
+
+    # make_divisible_by's centre pad, which always adds at least one
+    pad_h = 16 - out_h % 16
+    pad_w = 16 - out_w % 16
+    hv, wv = out_h + pad_h, out_w + pad_w
+    py, px = pad_h // 2, pad_w // 2
+
+    # _line_menu_shape(shear_margin=True), and the clamps to its pick
+    fold = sa.abs() > ca.abs()
+    need_h = torch.maximum(torch.maximum(h, hv), torch.where(fold, w, 0))
+    need_w = torch.maximum(torch.maximum(w, wv), torch.where(fold, h, 0))
+    menu_idx = torch.full_like(need_h, len(menu) - 1)
+    for mi in range(len(menu) - 1, -1, -1):
+        mhb, mwb = menu[mi]
+        fits = ((need_h + 2 * _shear_span(mwb) <= mhb)
+                & (need_w + 2 * _shear_span(mhb) <= mwb))
+        menu_idx = torch.where(fits, mi, menu_idx)
+    hb_sel, wb_sel = _menu_table(tuple(menu), dev)[:, menu_idx]
+    out_h = torch.minimum(out_h, hb_sel)
+    hv = torch.minimum(hv, hb_sel)
+    out_w = torch.minimum(out_w, wb_sel)
+    wv = torch.minimum(wv, wb_sel)
+
+    def pick(real, filler):
+        return torch.where(live, real, filler).to(f32)
+
+    fields = {
+        'page': torch.arange(K, device=dev).expand(B, K).to(f32),
+        'y0': pick(y0, 4), 'x0': pick(x0, 4), 'h': pick(h, 4),
+        'w': pick(w, 4), 'ry0': pick(ry0, 0), 'rx0': pick(rx0, 0),
+        'out_h': pick(out_h, 4), 'out_w': pick(out_w, 4),
+        'py': pick(py, 0), 'px': pick(px, 0), 'hv': pick(hv, 4),
+        'wv': pick(wv, 4), 'cos': pick(ca, 1.0), 'sin': pick(sa, 0.0),
+        'off_y': pick(off_y, 0.0), 'off_x': pick(off_x, 0.0),
+    }
+    plan = torch.stack(
+        [fields[k] for k in PARAGRAPH_INT_FIELDS + PARAGRAPH_FLT_FIELDS]
+        + [pick(roots, -1)], dim=2)
+    return roots, plan, menu_idx, n_comp
+
+
+def _page_labels(para_stack, syncs=None):
+    """Page CCL of (B, H, W) paragraph masks: grid_ccl_labels with the
+    row scans, capped at PAGE_CCL_MAX_ITERS, its sweep blocks counted as
+    syncs['page_ccl_block'].  Returns ((B, H, W) labels, converged)."""
+    lab, _, converged = grid_ccl_labels(
+        (para_stack > 0)[..., None], max_iters=PAGE_CCL_MAX_ITERS,
+        syncs=syncs, column_scan=True)
+    return lab[..., 0], converged
+
+
+def device_page_plans(para2d, out_hb, out_wb, k_max=32, syncs=None):
+    """Paragraph-stage plans of ONE page on the device (the single-page
+    chain's planner): every component cropped in the (out_hb, out_wb)
+    frame.  para2d (H, W) paragraph mask.  Returns (labels (H, W), roots
+    (k_max,), plan (k_max, 17) float32 rows of PARAGRAPH_INT_FIELDS and
+    PARAGRAPH_FLT_FIELDS, n_comp, ok: False iff the CCL hit its sweep cap
+    or the components overflow k_max, where the caller must plan on the
+    host).  'page' is the plan's slot: the chain crops each component
+    from the page masked to it."""
+    lab, converged = _page_labels(para2d[None], syncs=syncs)
+    roots, plan, _, n_comp = _page_component_plans(
+        lab, ((out_hb, out_wb),), k_max)
+    ok = (n_comp[0] <= k_max) & converged
+    return lab[0], roots[0], plan[0, :, :-1], n_comp[0], ok
+
+
+def device_chunk_plans(para_stack, menu, k_max=48, syncs=None):
+    """The device paragraph planner of a chunk.  para_stack (B, H, W)
+    paragraph masks; menu: the crop-shape menu (line_shape_menu).
+    Returns (labels (B, H, W), plans (B, k_max, 18) with the root label
+    last, menu_idx (B, k_max), n_comp (B,), converged: a host bool).
+    Pages with more than k_max components, or all of them when the CCL
+    did not converge, are the host planner's."""
+    lab, converged = _page_labels(para_stack, syncs=syncs)
+    _, plans, menu_idx, n_comp = _page_component_plans(lab, menu, k_max)
+    return lab, plans, menu_idx, n_comp, converged

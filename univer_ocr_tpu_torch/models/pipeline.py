@@ -33,6 +33,20 @@ argmax on the device; the host pulls the ids and decodes.  Two modes:
     for paragraphs the device still flags as merged, from the folded
     profile in the payload (`_plan_lines_from_profile`).
 
+The tables mode's default, as in JAX, is the fused tail (`fused_tail`,
+on with an integer `collapse_runs`; models/fused_tail.py): the paragraph
+stage goes on to plan the lines, crop them, run Char and decode the text
+on the device, and the host pulls the glyph ids, one pull per wave of
+SMALL_SLOTS launches; only the paragraphs the device flags re-plan on
+the host from their tables payload.  With it, the paragraph plans come
+from the device too (`device_chunk_plans`: a page CCL and the plan
+arithmetic), pulled as one small matrix per chunk; a page the planner
+cannot take (more than CHUNK_PLAN_K components, or a CCL over its sweep
+cap) is planned on the host.  One page alone takes the single-page chain
+(`_ocr_single_page_device`): front, `device_page_plans`, per-component
+crops at the largest menu shape and the fused tail, falling back to the
+chunk path when the planner cannot take the page.
+
 A dispatcher thread runs chunk i+1's dispatch while the caller's thread
 collects chunk i, and the paragraph launches of a chunk are handled in
 parallel on the pool.
@@ -83,8 +97,12 @@ from .band_tables import (PROFILE_ROW_DS, _group_centers, _shear_span,
 from .bucketing import (CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT, CHAR_WIDTH_MENU,
                         line_shape_menu, make_divisible_by, pick_char_width,
                         pick_line_shape)
+from . import fused_tail
 from .device_cascade import (LINE_FLT_FIELDS, LINE_INT_FIELDS,
                              PARAGRAPH_FLT_FIELDS, PARAGRAPH_INT_FIELDS,
+                             _twopass_crops, device_chunk_plans,
+                             device_page_plans, extract_paragraph_crops,
+                             extract_paragraph_crops_resident,
                              paragraph_stage, paragraph_stage_rot_resident,
                              rot90_inverse_affine, rotate_affine,
                              unpack_line_plan, unpack_paragraph_plan,
@@ -95,8 +113,10 @@ from .fastpath import (_mask_hw, char_forward_masked, char_head_weights,
 
 #: seed of the generator behind `OCRPipeline(weights=None)`
 RANDOM_INIT_SEED = 0
-#: what the fused tail (JAX models/fused_tail.py) waits for
-NOT_PORTED = 'the fused tail is not ported yet (ROADMAP A5)'
+#: the fused tail's suspect bits, in fused_tail's order, as
+#: escalation_stats counts them
+SUSPECT_BITS = ('merge', 'cross', 'table_of', 'lines_of', 'pool_of',
+                'trunc_of', 'glyph_of')
 
 
 def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
@@ -150,12 +170,12 @@ class OCRPipeline:
     the JAX pipeline initialises its models when given none.
     `device`: None or 'cuda' runs on the card (raising without one), with
     the CUDA kernels; 'cpu' runs on the host, with their plain versions.
-    `device_cascade`, `exact_bands`, `sampler`, `escalation`: as in the
-    JAX pipeline, every combination.  `fused_tail`: as in the JAX
-    pipeline, whose default turns it on in the tables mode with an
-    integer `collapse_runs`; it is not ported, so wherever it would be on
-    the constructor raises NotImplementedError (pass fused_tail=False).
-    Set `timers` to a `utils.profiling.StageTimers` to time the stages
+    `device_cascade`, `exact_bands`, `sampler`, `escalation`,
+    `fused_tail`: as in the JAX pipeline, every combination; the fused
+    tail is on by default in the tables mode with an integer
+    `collapse_runs`, and then chunks go through the device planner and
+    single pages through the chain.  Set `timers` to a
+    `utils.profiling.StageTimers` to time the stages
     (with it set, `timeline` records every device-to-host pull as
     (tag, start, end, bytes)).  Close the pipeline (`close()` or `with`)
     to shut its thread pools down.
@@ -167,6 +187,12 @@ class OCRPipeline:
     DEVICE_BATCH = 16
     #: batch of the device cascade's line stage
     LINE_DEVICE_BATCH = 64
+    #: per-page component cap of the device chunk planner (pages with
+    #: more are planned on the host)
+    CHUNK_PLAN_K = 48
+    #: fused-tail glyph payloads gather into one (SMALL_SLOTS, bytes)
+    #: buffer per wave of launches, pulled once
+    SMALL_SLOTS = 8
 
     def __init__(self, page_shape, weights=None, chunk=8, workers=8,
                  collapse_runs=False, quantized_transfers=True,
@@ -185,10 +211,11 @@ class OCRPipeline:
                           and isinstance(collapse_runs, int)
                           and not isinstance(collapse_runs, bool)
                           and collapse_runs >= 1)
-        if fused_tail and self.band_tables:
-            raise NotImplementedError(
-                f'fused_tail={fused_tail} in the tables mode: {NOT_PORTED}; '
-                'pass fused_tail=False')
+        self.fused_tail = bool(fused_tail) and self.band_tables
+        #: the device planners (chunk planner, single-page chain) go
+        #: with the fused tail; tests clear it to drive the
+        #: host-planned fused dispatch, as JAX's clear _chunk_planner
+        self._device_planner = self.fused_tail
         self.device = resolve_device(device)
         self.page_shape = tuple(page_shape)
         self.chunk = chunk
@@ -217,13 +244,17 @@ class OCRPipeline:
         #: tables-mode planning counters: paragraphs planned, and those
         #: re-planned from their profile because the device still flags
         #: them ('suspect') or their other axis finds separate lines
-        #: ('cross_axis')
+        #: ('cross_axis'); the fused tail adds 'capacity' (suspects for a
+        #: cap only), one count per suspect bit (SUSPECT_BITS) and
+        #: 'chain_fallback' (pages the device planner left to the host)
         self.escalation_stats = {'paragraphs': 0, 'suspect': 0,
                                  'cross_axis': 0}
         self._stats_lock = threading.Lock()
-        #: tables-mode host syncs on the dispatcher thread, by kind:
-        #: 'suspect_check' (one per paragraph launch) and 'grid_ccl_block'
-        #: (one per block of grid-CCL sweeps; band_tables.tables_state)
+        #: tables-mode host syncs, by kind: 'suspect_check' (one per
+        #: paragraph launch), 'grid_ccl_block' (one per block of grid-CCL
+        #: sweeps; band_tables.tables_state), 'page_ccl_block' (the
+        #: device planners' page CCL) and 'chain_plan' (the single-page
+        #: chain reading its component count)
         self.host_syncs = Counter()
 
     def close(self):
@@ -364,6 +395,71 @@ class OCRPipeline:
             precision=self.precision, tables=self.band_tables,
             sampler=self.sampler, syncs=self.host_syncs)
 
+    def _fused_tail(self, crops, h_valid, w_valid):
+        return fused_tail.fused_paragraph_tail(
+            self.params, crops, h_valid, w_valid, precision=self.precision,
+            min_run=max(int(self.collapse_runs), 1),
+            char_head=self.char_head, syncs=self.host_syncs)
+
+    def stage_blob_fused(self, mono_stack, blob, plan):
+        """Fused paragraph stage with the blobs uploaded: (sheared crops,
+        glyph payload, tables payload)."""
+        iv, fv = unpack_paragraph_plan(plan)
+        crops = extract_paragraph_crops(
+            mono_stack, blob, iv['page'], iv['y0'], iv['x0'], iv['h'],
+            iv['w'], fv['cos'], fv['sin'], fv['off_y'], fv['off_x'],
+            iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'], iv['py'],
+            iv['px'], precision=self.precision, sampler=self.sampler)
+        return self._fused_tail(crops, iv['hv'], iv['wv'])
+
+    def stage_res_fused(self, mono_stack, para_stack, plan, hb, wb):
+        """Fused paragraph stage with the blobs read from the resident
+        mask."""
+        iv, fv = unpack_paragraph_plan(plan)
+        crops = extract_paragraph_crops_resident(
+            mono_stack, para_stack, iv['page'], iv['y0'], iv['x0'],
+            iv['h'], iv['w'], fv['cos'], fv['sin'], fv['off_y'],
+            fv['off_x'], iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'],
+            iv['py'], iv['px'], hb, wb, precision=self.precision,
+            sampler=self.sampler)
+        return self._fused_tail(crops, iv['hv'], iv['wv'])
+
+    def _component_crops(self, pages, labels, root, plan, hb, wb):
+        """Two-pass crops of device-planned components: each plan's
+        source is its page masked to its own component (root label), so
+        every crop is blob-exact with nothing uploaded."""
+        iv, fv = unpack_paragraph_plan(plan)
+        masked = pages * (labels == root[:, None, None]).to(pages.dtype)
+        return _twopass_crops(
+            masked, None, torch.arange(masked.shape[0], device=masked.device),
+            iv['y0'], iv['x0'], iv['h'], iv['w'], fv['cos'], fv['sin'],
+            fv['off_y'], fv['off_x'], iv['ry0'], iv['rx0'], iv['out_h'],
+            iv['out_w'], iv['py'], iv['px'], hb, wb,
+            precision=self.precision), iv
+
+    def stage_labeled_fused(self, mono_stack, labels_stack, plan, hb, wb):
+        """Fused paragraph stage of device-planned plans: `plan` carries
+        the component's root label as its last column, and labels_stack
+        the chunk's (N, H, W) CCL labels."""
+        page = plan[:, 0].to(torch.int64)
+        crops, iv = self._component_crops(
+            mono_stack[:, :, :, 0][page], labels_stack[page],
+            plan[:, -1].to(torch.int64), plan[:, :-1], hb, wb)
+        return self._fused_tail(crops, iv['hv'], iv['wv'])
+
+    def chunk_planner(self, para_stack):
+        """device_chunk_plans at CHUNK_PLAN_K, its results packed into ONE
+        float32 vector [plans (B, K, 18) | menu_idx (B, K) | n_comp (B)]
+        (integers below 2^24 are exact).  Returns (labels, packed,
+        converged)."""
+        labels, plans, menu_idx, n_comp, converged = device_chunk_plans(
+            para_stack, tuple(self.line_shape_menu), k_max=self.CHUNK_PLAN_K,
+            syncs=self.host_syncs)
+        packed = torch.cat([plans.reshape(-1),
+                            menu_idx.to(torch.float32).reshape(-1),
+                            n_comp.to(torch.float32)])
+        return labels, packed, converged
+
     def line_stage(self, crop_stack, plan, out_h, out_w):
         """Zoomed line crops (one gather) + Char forward + argmax -> (B,
         out_w) uint8 ids, 255 at columns at or past each line's true
@@ -392,6 +488,8 @@ class OCRPipeline:
         chunks = [pages[start:start + self.chunk]
                   for start in range(0, len(pages), self.chunk)]
         with ops.precision.backend_flags(self.precision):
+            if len(pages) == 1 and self._device_planner:
+                return [self._ocr_single_page_device(pages[0])]
             if self.device_cascade:
                 return self._ocr_pages_device(chunks)
             return self._ocr_pages_host(chunks)
@@ -850,19 +948,21 @@ class OCRPipeline:
         return line_plans
 
     # -- device cascade: launches --------------------------------------------
-    def _dispatch_paragraph_stage(self, stacks, plans):
+    def _dispatch_paragraph_stage(self, stacks, plans, labels_dev=None):
         """Launch the crop + Line stage for all plans, grouped by shape
         menu; bboxes of one component read the resident mask, the others
-        upload their blobs.  Returns [(plan indices, crops, band masks or
-        tables payload)], all on the device."""
+        upload their blobs.  Device-planned plans (those with a 'root'
+        component label) group apart and take the labeled stage with
+        `labels_dev`.  Returns [(plan indices, crops, glyph payload or
+        None, band masks or tables payload)], all on the device."""
         mono_dev, para_dev = stacks
         groups = {}
         for i, plan in enumerate(plans):
-            groups.setdefault(plan['menu'], []).append(i)
+            groups.setdefault((plan['menu'], 'root' in plan), []).append(i)
         B = self.DEVICE_BATCH
         ni = len(PARAGRAPH_INT_FIELDS)
         launches = []
-        for (hb, wb), idxs in groups.items():
+        for ((hb, wb), labeled), idxs in groups.items():
             # blob-needing plans first, so that as few launches as
             # possible upload blobs; the launch count stays ceil(n / B)
             idxs = sorted(idxs, key=lambda i: not plans[i]['needs_blob'])
@@ -874,14 +974,16 @@ class OCRPipeline:
                 sel = idxs[start:start + Bsub]
                 start += Bsub
                 needs_blob = any(plans[i]['needs_blob'] for i in sel)
-                mat = np.zeros((Bsub, ni + len(PARAGRAPH_FLT_FIELDS)),
-                               np.float32)
+                mat = np.zeros((Bsub, ni + len(PARAGRAPH_FLT_FIELDS)
+                                + labeled), np.float32)
                 # filler rows: a harmless 4x4 crop at the stack origin
                 for ci, k in enumerate(PARAGRAPH_INT_FIELDS):
                     if k in ('h', 'w', 'out_h', 'out_w', 'hv', 'wv',
                              'y0', 'x0'):
                         mat[:, ci] = 4
                 mat[:, ni] = 1.0                         # cos
+                if labeled:
+                    mat[:, -1] = -1                      # no component
                 blob = (np.zeros((Bsub, hb, wb), np.uint8) if needs_blob
                         else None)
                 for bi, i in enumerate(sel):
@@ -892,14 +994,25 @@ class OCRPipeline:
                         mat[bi, ci] = plan[k]
                     for ci, k in enumerate(PARAGRAPH_FLT_FIELDS):
                         mat[bi, ni + ci] = plan[k]
+                    if labeled:
+                        mat[bi, -1] = plan['root']
                 pv = self._tensor(mat)
-                if needs_blob:
-                    crops, bands = self.stage_rot_blob(
-                        mono_dev, self._tensor(blob), pv)
+                if labeled:
+                    out = self.stage_labeled_fused(mono_dev, labels_dev, pv,
+                                                   hb, wb)
+                elif self.fused_tail and needs_blob:
+                    out = self.stage_blob_fused(mono_dev, self._tensor(blob),
+                                                pv)
+                elif self.fused_tail:
+                    out = self.stage_res_fused(mono_dev, para_dev, pv, hb, wb)
+                elif needs_blob:
+                    out = self.stage_rot_blob(mono_dev, self._tensor(blob),
+                                              pv)
                 else:
-                    crops, bands = self.stage_rot_res(mono_dev, para_dev, pv,
-                                                      hb, wb)
-                launches.append((sel, crops, bands))
+                    out = self.stage_rot_res(mono_dev, para_dev, pv, hb, wb)
+                if not self.fused_tail:
+                    out = (out[0], None, out[1])
+                launches.append((sel,) + tuple(out))
         return launches
 
     def _dispatch_line_stage(self, crops_dev, line_plans):
@@ -941,15 +1054,17 @@ class OCRPipeline:
 
     # -- device cascade: one chunk -------------------------------------------
     def _dispatch_front_device(self, chunk):
-        """Launch a chunk's front and start the pull of its paragraph
-        mask.  Returns (pages, map, mask, future of the host mask)."""
+        """Launch a chunk's front and, unless the device planner plans it,
+        start the pull of its paragraph mask.  Returns (pages, map, mask,
+        future of the host mask or None)."""
         mono_dev, para_dev = self.front_resident(self._upload_pages(chunk))
-        return (len(chunk), mono_dev, para_dev,
-                self._pull(para_dev, 'para_bits'))
+        bits = (None if self._device_planner
+                else self._pull(para_dev, 'para_bits'))
+        return len(chunk), mono_dev, para_dev, bits
 
     def _dispatch_chunk_device(self, n_pages, mono_dev, para_dev, para):
         """Dispatch phase of one chunk: paragraph plans and stage launches
-        with their band-mask pulls in flight, then, per paragraph launch on
+        with their payload pulls in flight, then, per paragraph launch on
         the pool, line plans and line-stage launches with their id pulls in
         flight.  Never waits for a result the collect phase can wait for.
         `para` is the host copy of the (n, H, W, 1) paragraph mask."""
@@ -964,19 +1079,81 @@ class OCRPipeline:
                                                          para[page, :, :, 0])]
         return self._finish_dispatch(n_pages, mono_dev, para_dev, plans)
 
-    def _finish_dispatch(self, n_pages, mono_dev, para_dev, plans):
+    def _dispatch_chunk_device_planned(self, n_pages, mono_dev, para_dev):
+        """Dispatch phase of one chunk planned on the device: the chunk
+        planner's one small plan matrix replaces the paragraph-mask pull
+        and the host planning; a page it cannot take (more than
+        CHUNK_PLAN_K components, or the CCL over its cap) is planned on
+        the host from the pulled mask, counted in
+        escalation_stats['chain_fallback'].  Planned crops are
+        component-exact (stage_labeled_fused): no blob is uploaded."""
+        K = self.CHUNK_PLAN_K
+        menu = self.line_shape_menu
+        mono_dev = self._pad_stack(mono_dev)
+        para_f = self._pad_stack(para_dev).float()
+        labels_dev, packed, converged = self.chunk_planner(para_f[..., 0])
+        with self._track('pull_plan_matrix'):
+            flat = self._pull(packed, 'plan_matrix').result()
+        B = self.chunk
+        nf = len(PARAGRAPH_INT_FIELDS) + len(PARAGRAPH_FLT_FIELDS) + 1
+        o = B * K * nf
+        mats = flat[:o].reshape(B, K, nf)
+        menu_idx = flat[o:o + B * K].reshape(B, K).astype(np.int64)
+        n_comp = flat[o + B * K:].astype(np.int64)
+
+        ni = len(PARAGRAPH_INT_FIELDS)
+        plans = []
+        para = None
+        with self._track('host_paragraph_plans'):
+            for page in range(n_pages):
+                if converged and n_comp[page] <= K:
+                    for k in range(int(n_comp[page])):
+                        row = mats[page, k]
+                        plan = {f: int(row[ci]) for ci, f in
+                                enumerate(PARAGRAPH_INT_FIELDS)}
+                        plan.update({f: float(row[ni + ci]) for ci, f in
+                                     enumerate(PARAGRAPH_FLT_FIELDS)})
+                        plan.update(page=page, menu=menu[menu_idx[page, k]],
+                                    root=int(row[-1]), needs_blob=False)
+                        plans.append(plan)
+                    continue
+                with self._stats_lock:
+                    st = self.escalation_stats
+                    st['chain_fallback'] = st.get('chain_fallback', 0) + 1
+                if para is None:
+                    with self._track('pull_para_bits'):
+                        para = self._pull(para_dev, 'para_bits').result()
+                plans.extend(self._page_paragraph_plans(page,
+                                                        para[page, :, :, 0]))
+        return self._finish_dispatch(n_pages, mono_dev, para_f, plans,
+                                     labels_dev=labels_dev)
+
+    def _finish_dispatch(self, n_pages, mono_dev, para_dev, plans,
+                         labels_dev=None):
         with self._track('dispatch_paragraph_stage'):
-            launches = self._dispatch_paragraph_stage((mono_dev, para_dev),
-                                                      plans)
-        band_futures = [self._pull(payload, 'bands')
-                        for _, _, payload in launches]
+            launches = self._dispatch_paragraph_stage(
+                (mono_dev, para_dev), plans, labels_dev=labels_dev)
+        if self.fused_tail:
+            futures = self._pull_glyph_waves(launches)
+        else:
+            futures = [self._pull(payload, 'bands')
+                       for _, _, _, payload in launches]
 
         def handle_launch(item):
-            """Band masks or tables -> line plans -> line-stage launches
-            for ONE paragraph launch; launches run in parallel, so pulls,
-            host planning and dispatches overlap."""
-            (sel, crops_dev, _), fut = item
-            if self.band_tables:
+            """Payload -> line plans -> line-stage launches for ONE
+            paragraph launch; launches run in parallel, so pulls, host
+            planning and dispatches overlap.  In the fused mode only the
+            flagged paragraphs are planned here."""
+            (sel, crops_dev, _, payload), fut = item
+            direct = None
+            if self.fused_tail:
+                wave, row, nbytes = fut
+                with self._track('pull_fused_glyphs'):
+                    buf = wave.result()[row, :nbytes]
+                flat, direct = self._plan_fused_launch(
+                    len(sel), buf, payload,
+                    [plans[i]['menu'] for i in sel])
+            elif self.band_tables:
                 flat = self._plan_launch_from_tables(sel, plans, fut)
             else:
                 with self._track('pull_band_masks'):
@@ -987,15 +1164,75 @@ class OCRPipeline:
                         plan = plans[sel[bi]]
                         view = bands[bi, :plan['hv'], :plan['wv'], :] > 0
                         flat.extend((bi, lp) for lp in self._plan_lines(view))
-            with self._track('dispatch_line_stage'):
-                refs = self._dispatch_line_stage(crops_dev, flat)
+            refs = []
+            # with the fused tail, only flagged paragraphs have lines here
+            if flat or direct is None:
+                with self._track('dispatch_line_stage'):
+                    refs = self._dispatch_line_stage(crops_dev, flat)
             id_futures = [(ref_sel, self._pull(ids_dev, 'char_ids'))
                           for ref_sel, ids_dev in refs]
-            return sel, flat, id_futures
+            return sel, flat, id_futures, direct
 
         char_launches = list(self._pool.map(handle_launch,
-                                            zip(launches, band_futures)))
+                                            zip(launches, futures)))
         return n_pages, plans, char_launches
+
+    def _pull_glyph_waves(self, launches):
+        """The fused launches' glyph payloads, gathered on the device into
+        one (SMALL_SLOTS, bytes) buffer per wave and pulled once a wave.
+        Returns (the wave's future, row, the launch's own payload bytes)
+        of each launch: a batch of 4 has a shorter payload than one of
+        DEVICE_BATCH."""
+        nb = fused_tail.fused_payload_nbytes(self.DEVICE_BATCH)
+        futures = []
+        for start in range(0, len(launches), self.SMALL_SLOTS):
+            wave = launches[start:start + self.SMALL_SLOTS]
+            acc = torch.zeros((self.SMALL_SLOTS, nb), dtype=torch.uint8,
+                              device=self.device)
+            for wi, (_, _, small, _) in enumerate(wave):
+                acc[wi, :small.shape[0]] = small
+            fut = self._pull(acc, 'fused_glyphs')
+            futures.extend((fut, wi, small.shape[0])
+                           for wi, (_, _, small, _) in enumerate(wave))
+        return futures
+
+    def _plan_fused_launch(self, n, buf, payload_dev, menus):
+        """One fused launch's host side: its n paragraphs' glyph payload
+        `buf` unpacked and counted in escalation_stats; the flagged
+        paragraphs' tables payload pulled and their lines planned (from
+        the profile for the geometry bits, with escalation on, else from
+        the tables, which the caps leave intact).  `menus` holds each
+        paragraph's (hb, wb).  Returns (line plans [(slot, plan)] of the
+        flagged paragraphs, {slot: decoded lines} of the others)."""
+        texts, suspects = fused_tail.unpack_fused_payload(buf, n)
+        counts = Counter(paragraphs=n,
+                         cross_axis=int(((suspects >> 1) & 1).sum()),
+                         capacity=int((suspects >= 4).sum()))
+        for b, name in enumerate(SUSPECT_BITS):
+            counts[name] = int(((suspects >> b) & 1).sum())
+        direct = {bi: texts[bi] for bi in range(n) if not suspects[bi]}
+        flat = []
+        if suspects.any():
+            with self._track('pull_band_tables'):
+                (tables, n_blobs, _, axes, _,
+                 profiles) = unpack_tables_payload(
+                    self._pull(payload_dev, 'bands').result())
+            with self._track('host_line_plans'):
+                for bi in np.flatnonzero(suspects):
+                    counts['suspect'] += 1
+                    ax = int(axes[bi])
+                    if self.escalation and int(suspects[bi]) & 0b111:
+                        lps = self._plan_lines_from_profile(
+                            profiles[bi], ax, *menus[bi])
+                    else:
+                        lps = self._plan_lines_from_tables(
+                            tables[bi], n_blobs[bi], ax)
+                    flat.extend((int(bi), lp) for lp in lps)
+        with self._stats_lock:
+            for key, v in counts.items():
+                self.escalation_stats[key] = (
+                    self.escalation_stats.get(key, 0) + v)
+        return flat, direct
 
     def _plan_launch_from_tables(self, sel, plans, fut):
         """The tables mode's line plans for one paragraph launch: from the
@@ -1032,26 +1269,39 @@ class OCRPipeline:
                 self.escalation_stats[key] += n
         return flat
 
+    def _launch_texts(self, n, flat, id_futures, direct):
+        """The line texts of one paragraph launch's n paragraphs: the
+        decoded ids of its line-stage launches, and the device-decoded
+        lines of the paragraphs in `direct` (the fused tail's)."""
+        line_texts = [None] * len(flat)
+        for ref_sel, fut in id_futures:
+            with self._track('pull_char_ids'):
+                ids = fut.result()
+            with self._track('decode_text'):
+                for bi, ref in enumerate(ref_sel):
+                    row = ids[bi, :flat[ref][1]['w_valid']]
+                    # edge whitespace is crop margin, not content
+                    line_texts[ref] = pred_ids_to_text(
+                        row, row != 255, self.collapse_runs).strip()
+        texts = []
+        cursor = 0
+        for bi in range(n):
+            if direct is not None and bi in direct:
+                texts.append([t.strip() for t in direct[bi]])
+                continue
+            n_lines = sum(1 for slot, _ in flat if slot == bi)
+            texts.append(line_texts[cursor:cursor + n_lines])
+            cursor += n_lines
+        return texts
+
     def _collect_chunk_device(self, state):
         """Collect phase: wait for the id pulls and decode the text."""
         n_pages, plans, char_launches = state
         texts = {}                      # plan index -> [line text]
-        for sel, flat, id_futures in char_launches:
-            line_texts = [None] * len(flat)
-            for ref_sel, fut in id_futures:
-                with self._track('pull_char_ids'):
-                    ids = fut.result()
-                with self._track('decode_text'):
-                    for bi, ref in enumerate(ref_sel):
-                        row = ids[bi, :flat[ref][1]['w_valid']]
-                        # edge whitespace is crop margin, not content
-                        line_texts[ref] = pred_ids_to_text(
-                            row, row != 255, self.collapse_runs).strip()
-            cursor = 0
-            for bi, i in enumerate(sel):
-                n_lines = sum(1 for slot, _ in flat if slot == bi)
-                texts[i] = line_texts[cursor:cursor + n_lines]
-                cursor += n_lines
+        for sel, flat, id_futures, direct in char_launches:
+            for i, lines in zip(sel, self._launch_texts(
+                    len(sel), flat, id_futures, direct)):
+                texts[i] = lines
         results = [[] for _ in range(n_pages)]
         for i, plan in enumerate(plans):
             results[plan['page']].append(texts.get(i, []))
@@ -1073,13 +1323,18 @@ class OCRPipeline:
                         pending = self._dispatch_front_device(chunk)
                     n_pages, mono_dev, para_dev, bits = pending
                     # launch chunk i+1's front before waiting on chunk i's
-                    # paragraph mask
+                    # paragraph mask or plans
                     pending = (self._dispatch_front_device(chunks[i + 1])
                                if i + 1 < len(chunks) else None)
-                    with self._track('pull_para_bits'):
-                        para = bits.result()
-                    states.put(('ok', self._dispatch_chunk_device(
-                        n_pages, mono_dev, para_dev, para)))
+                    if bits is None:
+                        state = self._dispatch_chunk_device_planned(
+                            n_pages, mono_dev, para_dev)
+                    else:
+                        with self._track('pull_para_bits'):
+                            para = bits.result()
+                        state = self._dispatch_chunk_device(
+                            n_pages, mono_dev, para_dev, para)
+                    states.put(('ok', state))
             except BaseException as exc:       # raised on the caller
                 states.put(('err', exc))
 
@@ -1094,3 +1349,73 @@ class OCRPipeline:
             results.extend(self._collect_chunk_device(state))
         thread.join()
         return results
+
+    # -- device cascade: one page ----------------------------------------------
+    def single_page_chain(self, page_u8, k2):
+        """The front and the device planner of one page: every component
+        planned in the largest menu frame.  Returns (map, mask, labels,
+        roots, plans, n_comp, ok) on the device (device_page_plans)."""
+        hb, wb = self.line_shape_menu[-1]
+        mono, para = self.front_resident(page_u8)
+        return (mono, para) + device_page_plans(
+            para[0, :, :, 0], hb, wb, k_max=k2, syncs=self.host_syncs)
+
+    def _ocr_single_page_device(self, page):
+        """The one-page latency path: front, device planner, component
+        crops and fused tails, with one read of the planner's result and
+        one pull of the glyph payloads.  A page the planner cannot take
+        (more than 2 * DEVICE_BATCH components, or the CCL over its cap)
+        takes the host-planned chunk path, counted in
+        escalation_stats['chain_fallback']; flagged paragraphs re-plan on
+        the host, as in the chunk path.
+
+        The JAX package runs both groups of DEVICE_BATCH components as
+        one program whatever the count; here the chain reads the count
+        first (one sync, host_syncs['chain_plan']) and launches only the
+        groups that hold components."""
+        B = self.DEVICE_BATCH
+        hb, wb = self.line_shape_menu[-1]
+        with self._track('dispatch_single_chain'):
+            mono, para, lab, roots, plan, n_comp, ok = self.single_page_chain(
+                self._upload_pages([page]), 2 * B)
+            self.host_syncs['chain_plan'] += 1
+            ok, n_comp = (int(v) for v in self._pull(
+                torch.stack([ok.to(torch.int64), n_comp]),
+                'chain_plan').result())
+            if not ok:
+                with self._stats_lock:
+                    st = self.escalation_stats
+                    st['chain_fallback'] = st.get('chain_fallback', 0) + 1
+            else:
+                groups = []
+                for g in range(-(-n_comp // B)):
+                    rows = slice(g * B, (g + 1) * B)
+                    crops, iv = self._component_crops(
+                        mono[:, :, :, 0].expand(B, -1, -1), lab[None],
+                        roots[rows], plan[rows], hb, wb)
+                    groups.append(self._fused_tail(crops, iv['hv'],
+                                                   iv['wv']))
+        if not ok:
+            with self._track('pull_para_bits'):
+                para_host = self._pull(para, 'para_bits').result()
+            return self._collect_chunk_device(self._dispatch_chunk_device(
+                1, mono, para, para_host))[0]
+        if not groups:
+            return []
+        nb = fused_tail.fused_payload_nbytes(B)
+        with self._track('pull_fused_glyphs'):
+            buf = self._pull(torch.cat([small for _, small, _ in groups]),
+                             'fused_glyphs').result()
+        result = []
+        for g, (crops, _, tables) in enumerate(groups):
+            n = min(n_comp - g * B, B)
+            flat, direct = self._plan_fused_launch(
+                n, buf[g * nb:(g + 1) * nb], tables, [(hb, wb)] * n)
+            refs = []
+            if flat:
+                with self._track('dispatch_line_stage'):
+                    refs = self._dispatch_line_stage(crops, flat)
+            result.extend(self._launch_texts(
+                n, flat, [(ref_sel, self._pull(ids, 'char_ids'))
+                          for ref_sel, ids in refs], direct))
+        return result
