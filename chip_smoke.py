@@ -56,6 +56,25 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            more than the chain takes: it must fall back to the
            host-planned fused dispatch, with the text of the
            device-planned chunk path and both kernels launched
+  train_path
+           training (univer_ocr_tpu_torch.models.train) from the committed
+           checkpoint on the training fixture's 3 pages
+           (fixtures/train_pages.npz): each curriculum stage's fixed run
+           (Adam(lr), train pages 0 and 1, test the validation page),
+           twice, in 'highest', each held against the JAX numbers stored
+           in the fixture (the same crops, lines and steps; each model's
+           first step within FIRST_STEP_RTOL, every later loss and
+           parameter update norm within TRAIN_RTOL), with the spread
+           between the two runs, ms per train and test step (median),
+           steps per page, host syncs per step (sync debug mode) and one
+           profiler window of a TRAIN_CHAR page; then train_model over
+           the 5 stages, 1 epoch each, writing build/train/: finite
+           losses, the committed checkpoint's 18 entries and shapes; a
+           train_model stage whose first page carries a NaN must roll
+           back; and the serving default on the written checkpoint
+           (well-formed text, similarity to the committed checkpoint's
+           printed).  Training launches neither kernel (its count must
+           stay 0)
   times    CUDA-event times of each kernel and its plain version at the
            paths' shapes (the Char head at every width each path
            launched) beside their bounds; the JAX device cascade's Char
@@ -151,6 +170,22 @@ TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 #: lines per Char head launch: the host path's and the device path's
 HOST_LINES, DEVICE_LINES = 16, 64
+#: the training pages and the JAX package's numbers for their fixed run
+#: (tests/test_torch_train_fixture.py)
+TRAIN_FIXTURE = ROOT / 'univer_ocr_tpu_torch' / 'fixtures' / 'train_pages.npz'
+#: each model's first step of a stage against JAX's, relative: the same
+#: weights, a forward only
+FIRST_STEP_RTOL = 1e-5
+#: each model's later losses and parameter update norms against JAX's:
+#: (loss rtol, loss atol, norm rtol), a loss passing within
+#: rtol * |JAX's| + atol.  Adam's first updates are close to
+#: lr * sqrt(1000) * sign(g), so an element whose gradient sums to about
+#: 0 takes a full step in a direction set by the sum order; the Char
+#: model, whose dense layers hold most such elements and whose lines
+#: reach losses of 258, then follows another trajectory step by step,
+#: as two card runs can (the bars are measured on an H100; PERF.md §6)
+TRAIN_RTOL = {'Monochrome': (1e-4, 0.0, 1e-3), 'Paragraph': (1e-4, 0.0, 1e-3),
+              'Line': (1e-4, 0.0, 1e-3), 'Char': (0.5, 0.5, 0.2)}
 
 
 @contextlib.contextmanager
@@ -409,28 +444,8 @@ def device_activities(prof):
 
 
 def profile_window(pipeline, pages, label):
-    """One torch.profiler window over one chunk: the device's busy share
-    of the window (device time of every CUDA activity over the window's
-    host time) and its top kernels by device time."""
-    from univer_ocr_tpu_torch.utils.profiling import device_trace
-    with device_trace(ROOT / 'build' / 'traces' / label) as prof:
-        t0 = time.perf_counter()
-        pipeline.ocr_pages(pages)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_activities(prof)
-    busy_ms = sum(us for us, _, _ in kernels) / 1e3
-    if busy_ms == 0:
-        print(f'  {label} profiler: key_averages() shows no device time; '
-              f'no busy share read', flush=True)
-        return None
-    top = sorted(kernels, reverse=True)[:8]
-    print(f'  {label} profiler: window {window_ms:.1f} ms, device busy '
-          f'{busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f} %) over '
-          f'{sum(n for _, n, _ in kernels)} device activities', flush=True)
-    for us, n, name in top:
-        print(f'    {us / 1e3:9.3f} ms x{n:<5d} {name[:110]}', flush=True)
-    return busy_ms / window_ms
+    """One torch.profiler window over one chunk (profile_call)."""
+    return profile_call(lambda: pipeline.ocr_pages(pages), label)
 
 
 def decode_timing(rng):
@@ -548,6 +563,374 @@ def compare_plans(pipeline, pages):
     if float_err > PLAN_TOL:
         raise AssertionError(f'float plan fields differ by {float_err}')
     return runs['chunk'][1][3].tolist()
+
+
+class NanOnce:
+    """A dataset whose first page read for a step carries a NaN pixel (the
+    trainer must roll the NaN weights back).  train_model reads page 0's
+    image once for its input shape before any step: that read is left
+    clean."""
+
+    def __init__(self, dataset):
+        self.dataset, self.reads = dataset, 0
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def get(self, idx, layer_tags=None):
+        page = self.dataset.get(idx, layer_tags)
+        self.reads += 1
+        if self.reads == 2:
+            page['image'] = page['image'].copy()
+            page['image'][0, 40, 40, 0] = np.nan
+        return page
+
+
+def record_steps(system, log, page, sync):
+    """Wrap each model component's step once: every step's losses go to
+    `log` with the page in `page[0]` and its host ms (ending in `sync()`),
+    one step per crop or line in the masked components (the wrapper of
+    tests/test_torch_train_fixture.py, timed)."""
+    def note(name, phase, losses, t0):
+        sync()
+        log.append({'page': page[0], 'phase': phase, 'model': name,
+                    'output_losses': [float(v) for v in
+                                      losses['output_losses']],
+                    'regularization_loss': (
+                        float(losses['regularization_loss'])
+                        if 'regularization_loss' in losses else None),
+                    'ms': (time.perf_counter() - t0) * 1e3})
+
+    for component in system.components:
+        if not hasattr(component, 'model'):
+            continue
+        name = component.name
+        if hasattr(component, '_run'):
+            def run(X, y, training, run=component._run, name=name):
+                t0 = time.perf_counter()
+                losses, pred = run(X, y, training)
+                note(name, 'train' if training else 'test', losses, t0)
+                return losses, pred
+            component._run = run
+        else:
+            model = component.model
+            for phase in ('train', 'test'):
+                def step(X, y, step=getattr(model, phase), phase=phase,
+                         name=name):
+                    t0 = time.perf_counter()
+                    losses = step(X, y)
+                    note(name, phase, losses, t0)
+                    return losses
+                setattr(model, phase, step)
+
+
+def fixed_stage(mode_name, lr, pages, weights, device, sync, census=None):
+    """One stage of the training fixture's fixed run on the port:
+    Adam(lr), train on pages 0 and 1, test on page 2, from `weights`.
+    Returns its steps (losses, host ms), crops and lines per page, each
+    page's host ms, and each parameter's update norm.  `census(fn)`, when
+    given, runs the first train page under a sync count."""
+    from univer_ocr_tpu_torch.models.model import (Modes,
+                                                   make_context_maker,
+                                                   make_model_system)
+    from univer_ocr_tpu_torch.nn.optimizers import Adam
+    from univer_ocr_tpu_torch.nn.progress_tracker import ProgressTracker
+    mode = Modes[mode_name]
+    tracker = ProgressTracker(handler=lambda *args: None)
+    system, models, _ = make_model_system(
+        PAGE_SHAPE, Adam(lr=lr), tracker, weights, mode=mode, device=device)
+    before = {name: {layer: {k: v.detach().clone() for k, v in p.items()}
+                     for layer, p in model.params.items()}
+              for name, model in models.items()}
+    make_context = make_context_maker(mode, device)
+    steps, crops, lines, page_ms, page = [], [], [], [], [0]
+    syncs = None
+    record_steps(system, steps, page, sync)
+    for page[0], phase in ((0, 'train'), (1, 'train'), (2, 'test')):
+        sync()
+        t0 = time.perf_counter()
+        context = make_context(pages.get, (page[0],))
+        run = getattr(system, phase)
+        if census is not None and page[0] == 0:
+            syncs = census(lambda: run(context))
+        else:
+            run(context)
+        sync()
+        page_ms.append((time.perf_counter() - t0) * 1e3)
+        crops.append(len(context.get('cropped_monochrome_cpu', [])))
+        lines.append(sum(len(p) for p in context.get(
+            'cropped_2_monochrome_cpu', [])))
+    norms = {name: {f'{layer}/{k}': float(torch.linalg.vector_norm(
+                        v.double() - before[name][layer][k].double()))
+                    for layer, p in model.params.items()
+                    for k, v in p.items()}
+             for name, model in models.items()}
+    crop_ms = {layer: sum(e['time'].total_seconds() for e in events
+                          if e['time'] is not None) * 1e3
+               for layer, events in tracker.get_summary().items()
+               if layer in ('ParagraphCrop', 'LineCrop', 'CharLabel')}
+    return {'steps': steps, 'crops': crops, 'lines': lines,
+            'page_ms': page_ms, 'update_norms': norms, 'syncs': syncs,
+            'crop_ms': crop_ms}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return np.abs(a - b) / np.maximum(np.abs(b), 1e-12)
+
+
+def compare_stage(stage, got, ref):
+    """The port's fixed run of a stage against the JAX numbers: the same
+    crops, lines and steps; each model's first step within
+    FIRST_STEP_RTOL; its later losses and its update norms within
+    TRAIN_RTOL.  Returns {model: (first, later, norms)}, the largest
+    relative differences."""
+    if (got['crops'], got['lines']) != (ref['crops'], ref['lines']):
+        raise AssertionError(f'{stage}: crops {got["crops"]} lines '
+                             f'{got["lines"]}, JAX {ref["crops"]} '
+                             f'{ref["lines"]}')
+    keys = [(s['page'], s['phase'], s['model']) for s in ref['steps']]
+    if [(s['page'], s['phase'], s['model']) for s in got['steps']] != keys:
+        raise AssertionError(f'{stage}: the steps differ from JAX\'s')
+    first = {m: [0.0] for m in ref['update_norms']}
+    later = {m: [0.0] for m in ref['update_norms']}
+    seen = set()
+    for g, r in zip(got['steps'], ref['steps']):
+        m = r['model']
+        pairs = list(zip(g['output_losses'], r['output_losses']))
+        if r['regularization_loss'] is not None:
+            pairs.append((g['regularization_loss'],
+                          r['regularization_loss']))
+        if m not in seen:
+            first[m].extend(float(_rel(a, b)) for a, b in pairs)
+            seen.add(m)
+            continue
+        rtol, atol, _ = TRAIN_RTOL[m]
+        for a, b in pairs:
+            if abs(a - b) > rtol * abs(b) + atol:
+                raise AssertionError(f'{stage} {m}: loss {a} off JAX\'s '
+                                     f'{b} (> {rtol} * |{b}| + {atol})')
+            later[m].append(float(_rel(a, b)))
+    out = {}
+    for m in ref['update_norms']:
+        norms = [float(_rel(got['update_norms'][m][k], v))
+                 for k, v in ref['update_norms'][m].items()]
+        out[m] = (max(first[m]), max(later[m]), max(norms))
+    print(f'  {stage}: steps {len(keys)}, crops {got["crops"]}, lines '
+          f'{got["lines"]}; against JAX, relative (first step, later '
+          f'losses, update norms): '
+          f'{ {m: [f"{v:.3e}" for v in e] for m, e in out.items()} }',
+          flush=True)
+    for m, (first_err, _, norms) in out.items():
+        if first_err > FIRST_STEP_RTOL:
+            raise AssertionError(f'{stage} {m}: first-step losses '
+                                 f'{first_err} off JAX\'s (> '
+                                 f'{FIRST_STEP_RTOL})')
+        if norms > TRAIN_RTOL[m][2]:
+            raise AssertionError(f'{stage} {m}: update norms {norms} off '
+                                 f'JAX\'s (> {TRAIN_RTOL[m][2]})')
+    return out
+
+
+def spread(run_a, run_b):
+    """Largest relative difference between two runs of the same stage."""
+    losses = max(float(_rel(a['output_losses'], b['output_losses']).max())
+                 for a, b in zip(run_a['steps'], run_b['steps']))
+    norms = max(float(_rel(run_a['update_norms'][m][k], v))
+                for m, d in run_b['update_norms'].items()
+                for k, v in d.items())
+    return losses, norms
+
+
+def count_syncs(fn):
+    """(fn's result, the syncs torch's sync debug mode reports while it
+    runs)."""
+    import warnings
+    count = [0]
+
+    def record(message, *args, **kwargs):
+        if SYNC_WARNING in str(message):
+            count[0] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return count[0]
+
+
+def stage_times(stage, run):
+    """ms per train and per test step (host clock ending in a
+    synchronize, median over the steps) and steps per page."""
+    out = {}
+    for phase in ('train', 'test'):
+        ms = [s['ms'] for s in run['steps'] if s['phase'] == phase]
+        out[f'{phase}_step_ms'] = float(np.median(ms))
+        out[f'{phase}_steps'] = len(ms)
+    out['steps_per_page'] = len(run['steps']) / 3
+    out['page_ms'] = [round(t, 3) for t in run['page_ms']]
+    # a page's time by layer, over the 3 pages: the model steps, the
+    # crop pools, and the rest (the context's encoding and staging)
+    out['steps_ms'] = sum(s['ms'] for s in run['steps'])
+    out['crop_ms'] = {k: round(v, 3) for k, v in run['crop_ms'].items()}
+    out['other_ms'] = (sum(run['page_ms']) - out['steps_ms']
+                       - sum(run['crop_ms'].values()))
+    out['train_pages_per_s'] = 2e3 / sum(run['page_ms'][:2])
+    if run['syncs'] is not None:
+        n = sum(1 for s in run['steps'] if s['page'] == 0)
+        out['syncs_page0'] = run['syncs']
+        out['syncs_per_step'] = run['syncs'] / n
+    print(f'  {stage} times: {json.dumps(out)}', flush=True)
+    return out
+
+
+def profile_call(fn, label):
+    """One torch.profiler window over fn(): the device's busy share of the
+    window (device time of every CUDA activity over the window's host
+    time) and its top kernels by device time."""
+    from univer_ocr_tpu_torch.utils.profiling import device_trace
+    with device_trace(ROOT / 'build' / 'traces' / label) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_activities(prof)
+    busy_ms = sum(us for us, _, _ in kernels) / 1e3
+    if busy_ms == 0:
+        print(f'  {label} profiler: key_averages() shows no device time; '
+              f'no busy share read', flush=True)
+        return None
+    top = sorted(kernels, reverse=True)[:8]
+    print(f'  {label} profiler: window {window_ms:.1f} ms, device busy '
+          f'{busy_ms:.2f} ms ({100 * busy_ms / window_ms:.1f} %) over '
+          f'{sum(n for _, n, _ in kernels)} device activities', flush=True)
+    for us, n, name in top:
+        print(f'    {us / 1e3:9.3f} ms x{n:<5d} {name[:110]}', flush=True)
+    return busy_ms / window_ms
+
+
+def train_path(expected_fused, fixture_list):
+    """Phase train_path: the training fixture's fixed run twice against
+    JAX's numbers, train_model over the curriculum (1 epoch a stage, and
+    once with a NaN injected), and the serving default on its
+    checkpoint.  Returns the kernel launches of the training."""
+    from univer_ocr_tpu_torch.models.constants import LAYER_NAMES_PLAIN
+    from univer_ocr_tpu_torch.models.datasets import (ArrayDataset,
+                                                      load_page_arrays)
+    from univer_ocr_tpu_torch.models.model import (Modes, make_context_maker,
+                                                   make_model_system)
+    from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
+    from univer_ocr_tpu_torch.models.train import CURRICULUM, train_model
+    from univer_ocr_tpu_torch.nn.optimizers import Adam
+    from univer_ocr_tpu_torch.ops.kernels import LAUNCHES
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+    from univer_ocr_tpu_torch.weights import (DEFAULT_CHECKPOINT,
+                                              load_checkpoint)
+    train, validation = load_page_arrays(TRAIN_FIXTURE)
+    with np.load(TRAIN_FIXTURE) as f:
+        pages = np.concatenate([f['train'], f['validation']])
+        reference = json.loads(str(f['reference']))
+    three = ArrayDataset(pages, LAYER_NAMES_PLAIN)
+    with open(DEFAULT_CHECKPOINT) as fp:
+        weights = json.load(fp)
+    lrs = {mode.name: lr for mode, lr, _, _ in CURRICULUM}
+
+    LAUNCHES.clear()
+    runs = [{}, {}]
+    with backend_flags('highest'):
+        for i, run in enumerate(runs):
+            for stage, ref in reference.items():
+                run[stage] = fixed_stage(
+                    stage, lrs[stage], three, weights, 'cuda',
+                    torch.cuda.synchronize,
+                    census=count_syncs if i == 1 else None)
+                compare_stage(stage, run[stage], ref)
+        for stage in reference:
+            loss_spread, norm_spread = spread(runs[0][stage],
+                                              runs[1][stage])
+            print(f'  {stage}: spread between the two card runs, relative: '
+                  f'losses {loss_spread:.3e}, update norms '
+                  f'{norm_spread:.3e}', flush=True)
+            stage_times(stage, runs[1][stage])
+
+        # one profiler window over a TRAIN_CHAR train page
+        system, _, _ = make_model_system(
+            PAGE_SHAPE, Adam(lr=lrs['TRAIN_CHAR']), weights=weights,
+            mode=Modes.TRAIN_CHAR, device='cuda')
+        context = make_context_maker(Modes.TRAIN_CHAR, 'cuda')(
+            three.get, (0,))
+        system.train(context)                  # warm
+        context = make_context_maker(Modes.TRAIN_CHAR, 'cuda')(
+            three.get, (1,))
+        profile_call(lambda: system.train(context), 'train_char')
+
+    out_dir = ROOT / 'build' / 'train'
+    curriculum = [(mode, lr, step, 1) for mode, lr, step, _ in CURRICULUM]
+    t0 = time.perf_counter()
+    results = train_model(train, validation, curriculum, train_size=2,
+                          val_size=1, seed=0,
+                          weights_out=out_dir / 'model_weights.json',
+                          device='cuda')
+    torch.cuda.synchronize()
+    print(f'  train_model, 5 stages x 1 epoch: '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    for r in results:
+        print(f'  {r["mode"]}: best '
+              f'{ {k: list(map(float, v)) for k, v in r["best_losses"].items()} }'
+              f', rollbacks {r["rollbacks"]}', flush=True)
+        if r['rollbacks'] or not all(np.isfinite(v).all()
+                                     for v in r['best_losses'].values()):
+            raise AssertionError(f'train_model {r["mode"]}: {r}')
+    with open(out_dir / 'model_weights.json') as fp:
+        written = json.load(fp)
+    from univer_ocr_tpu_torch.nn.checkpoint import write_weights
+    t0 = time.perf_counter()
+    write_weights(written, out_dir / 'rewritten.json')
+    print(f'  checkpoint write (18 entries, JSON, atomic): '
+          f'{(time.perf_counter() - t0) * 1e3:.1f} ms', flush=True)
+    shapes = {k: {p: np.asarray(v).shape for p, v in d.items()}
+              for k, d in written.items()}
+    if shapes != {k: {p: np.asarray(v).shape for p, v in d.items()}
+                  for k, d in weights.items()} or len(written) != 18:
+        raise AssertionError(f'train_model wrote {shapes}')
+    nan_run = train_model(NanOnce(train), validation, curriculum[:1],
+                          train_size=2, val_size=1, seed=0,
+                          weights_out=out_dir / 'nan_weights.json',
+                          device='cuda')[0]
+    print(f'  train_model with a NaN injected: rollbacks '
+          f'{nan_run["rollbacks"]}, best {nan_run["best_losses"]}',
+          flush=True)
+    if nan_run['rollbacks'] < 1 or not np.isfinite(
+            nan_run['best_losses']['Monochrome']).all():
+        raise AssertionError('train_model did not roll the NaN back')
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f'train_path launches: {launches}', flush=True)
+
+    # the serving default on the trained checkpoint: well-formed text
+    with OCRPipeline(PAGE_SHAPE, weights=load_checkpoint(
+            out_dir / 'model_weights.json', device='cuda'), chunk=CHUNK,
+            workers=8, collapse_runs=4, precision='highest',
+            device='cuda', **FUSED_MODE) as trained:
+        results = trained.ocr_pages(
+            [fixture_list[i % len(fixture_list)] for i in range(CHUNK)])
+    if len(results) != CHUNK or not all(
+            isinstance(line, str)
+            for page in results for para in page for line in para):
+        raise AssertionError('the trained checkpoint\'s text is not '
+                             'well formed')
+    for i, page in enumerate(results):
+        ratio = difflib.SequenceMatcher(
+            None, page_text(expected_fused[i % len(expected_fused)]),
+            page_text(page), autojunk=False).ratio()
+        print(f'  trained checkpoint, page {i}: {len(page)} paragraphs, '
+              f'{sum(len(p) for p in page)} lines, similarity to the '
+              f'committed checkpoint\'s JAX text {ratio:.6f}', flush=True)
+    return launches
 
 
 def main():
@@ -799,6 +1182,13 @@ def main():
                 raise AssertionError('chain_path: the 48-blob page did not '
                                      'fall back to the chunk path\'s text')
             kernels_launched('chain_fallback')
+
+        with phase('train_path'):
+            launches['train_path'] = train_path(expected_fused,
+                                                fixture_list)
+            if any(launches['train_path'].values()):
+                raise AssertionError('train_path launched a kernel: '
+                                     f'{launches["train_path"]}')
 
         with phase('times'), backend_flags('highest'):
             print(f'times on: {card}', flush=True)

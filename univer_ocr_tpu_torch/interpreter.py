@@ -1,15 +1,22 @@
 """Host CV between the cascade's models (a numpy/scipy copy of the parts
-of univer_ocr_tpu/interpreter/interpreter.py that the host cascade calls).
+of univer_ocr_tpu/interpreter/interpreter.py that the host cascade and
+the trainer's crop components call).
 
 Connected components use `scipy.ndimage.label`, which the JAX package's
 native CCL matches exactly, and rotations use `ndimage.rotate`, as the
-JAX package does by default; so no native code is needed here.
+JAX package does by default; so no native code is needed here.  The
+crop stages fan out over a thread pool (the JAX package's default
+backend): their hot loops are numpy and scipy, which release the
+interpreter lock.
 """
+
+import os
+from multiprocessing.pool import ThreadPool
 
 import numpy as np
 from scipy import ndimage
 
-from .primitives import CHARS, are_similar
+from .primitives import BITS_COUNT, CHARS, are_similar
 
 
 def bbox(mask):
@@ -180,6 +187,163 @@ def crop_and_rotate_single_paragraph(mask, arrays, find_rotation=True, eps=1.0):
         rotate_array(arr, angle)[:, region_y, region_x, :]
         for arr in cropped_arrays
     ]
+
+
+class StagePool:
+    """One thread pool with the fan-out helpers the crop stages share.
+    Close it (`close()` or `with`) to stop its threads."""
+
+    def __init__(self, workers_count=None):
+        self.workers_count = (os.cpu_count() if workers_count is None
+                              else workers_count)
+        self._pool = ThreadPool(self.workers_count)
+
+    def close(self):
+        self._pool.terminate()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def map_nested(self, func, nested, *extra):
+        """[[leaf]] -> [[func(leaf, *extra)]] with every leaf in flight at
+        once (the [paragraph][line] nesting of the label stage)."""
+        tasks = [[self._pool.apply_async(func, (leaf, *extra))
+                  for leaf in row] for row in nested]
+        return [[task.get() for task in row] for row in tasks]
+
+
+class CropAndRotateParagraphs(StagePool):
+    """Label the paragraph mask and crop and deskew each paragraph of
+    every co-registered image, one pool task per paragraph.  Returns
+    result[image_id][paragraph_id]."""
+
+    def __init__(self, workers_count=None, find_rotation=True):
+        super().__init__(workers_count)
+        self.find_rotation = find_rotation
+
+    def __call__(self, masks, images):
+        labeled_paragraph = label_layer(masks)
+        tasks = [self._pool.apply_async(
+                     crop_and_rotate_single_paragraph,
+                     (mask, images, self.find_rotation))
+                 for mask in labeled_paragraph]
+        by_paragraph = [task.get() for task in tasks]
+        return [[res[image_id] for res in by_paragraph]
+                for image_id in range(len(images))]
+
+
+def plan_paragraph_lines(band_pred, thresholded_input=False):
+    """One paragraph's line-band prediction -> (bboxes, rotation):
+    threshold both band channels at 0.5 * (mean + max) (or take them as
+    thresholded masks), label them, pair and order them
+    (rearrange_lines), and take each pair's union bbox."""
+    def threshold(channel):
+        if thresholded_input:
+            return channel > 0
+        return channel > 0.5 * (np.mean(channel) + np.max(channel))
+
+    tops, bottoms, rotation = rearrange_lines(
+        label_layer(threshold(band_pred[:, :, :, 0:1])),
+        label_layer(threshold(band_pred[:, :, :, 1:2])))
+    bboxes = []
+    for top, bottom in zip(tops, bottoms):
+        _, top_y, top_x, _ = bbox(top)
+        _, bot_y, bot_x, _ = bbox(bottom)
+        bboxes.append((
+            slice(min(top_y.start, bot_y.start),
+                  max(top_y.stop, bot_y.stop)),
+            slice(min(top_x.start, bot_x.start),
+                  max(top_x.stop, bot_x.stop))))
+    return bboxes, rotation
+
+
+def extract_line(image, line_bbox, rotation, zoomed_height, minimal_width):
+    """Crop one line's bbox, fix its orientation, zoom it to the Char
+    model's input height, right-pad it to the minimum width."""
+    y, x = line_bbox
+    line = rotate_array(image[:, y, x, :], rotation)
+    if zoomed_height is not None:
+        factor = zoomed_height / line.shape[1]
+        line = ndimage.zoom(line, (1, factor, factor, 1), order=0)
+    if minimal_width is not None and line.shape[2] < minimal_width:
+        padded = np.zeros(line.shape[:2] + (minimal_width, line.shape[3]),
+                          dtype=line.dtype)
+        padded[:, :, :line.shape[2], :] = line
+        line = padded
+    return line
+
+
+def extract_paragraph_lines(band_pred, images, zoomed_height,
+                            minimal_width):
+    """Plan one paragraph's lines once, extract them from every
+    co-registered image: returns [image][line]."""
+    bboxes, rotation = plan_paragraph_lines(band_pred)
+    return [[extract_line(image, b, rotation, zoomed_height, minimal_width)
+             for b in bboxes]
+            for image in images]
+
+
+class CropRotateAndZoomLines(StagePool):
+    """Line crop stage: one pool task per paragraph plans and extracts
+    every line of every co-registered array.  Call with masks
+    ([paragraph] band predictions) and arrays ([kind][paragraph]);
+    returns [kind][paragraph][line]."""
+
+    def __init__(self, workers_count=None, zoomed_height=None,
+                 minimal_width=None):
+        super().__init__(workers_count)
+        self.zoomed_height = zoomed_height
+        self.minimal_width = minimal_width
+
+    def __call__(self, masks, arrays):
+        tasks = [
+            self._pool.apply_async(
+                extract_paragraph_lines,
+                (mask, [kind[p] for kind in arrays],
+                 self.zoomed_height, self.minimal_width))
+            for p, mask in enumerate(masks)]
+        by_paragraph = [task.get() for task in tasks]
+        return [[by_paragraph[p][k] for p in range(len(masks))]
+                for k in range(len(arrays))]
+
+
+def decode_bits_to_ids(bits):
+    """(..., BITS_COUNT) boolean bit planes -> (...,) char ids, LSB first;
+    ids >= len(CHARS) are unknown."""
+    weights = (1 << np.arange(BITS_COUNT)).astype(np.int32)
+    return np.tensordot(bits.astype(np.int32), weights, axes=([-1], [0]))
+
+
+def label_char_line(array):
+    """(1, H, W, >=8) bit-plane crop -> (W, len(CHARS)) one-hot labels:
+    threshold at 0.5 * (mean + max), decode each pixel's 8 bits to a char
+    id, then a per-column majority vote (ties to the smallest id); a
+    winning id >= len(CHARS) (unknown) leaves a zero row."""
+    thresholded = array > 0.5 * (np.mean(array) + np.max(array))
+    bits = thresholded[0, :, :, :BITS_COUNT]            # (H, W, 8)
+    ids = decode_bits_to_ids(bits)                      # (H, W)
+
+    H, W = ids.shape
+    counts = np.zeros((W, 256), dtype=np.int32)
+    np.add.at(counts, (np.broadcast_to(np.arange(W), (H, W)).ravel(),
+                       ids.ravel()), 1)
+    winners = counts.argmax(axis=1)                     # (W,)
+
+    result = np.zeros((W, len(CHARS)))
+    valid = winners < len(CHARS)
+    result[np.arange(W)[valid], winners[valid]] = 1
+    return result
+
+
+class LabelChar(StagePool):
+    """Ground-truth char labels from bit-plane line crops
+    ([paragraph][line])."""
+
+    def __call__(self, arrays):
+        return self.map_nested(label_char_line, arrays)
 
 
 def pred_ids_to_text(ids, valid, collapse_runs=False):

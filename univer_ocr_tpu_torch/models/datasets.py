@@ -1,0 +1,125 @@
+"""Datasets of training pages (the parts of univer_ocr_tpu/models/
+datasets.py that training needs).
+
+A dataset is a sized source of pages; `get(idx, layer_tags)` returns the
+page's layers as `{tag: (1, H, W, C) float64 array in [0, 1]}`, channels
+in LAYER_NAMES order: the uint8 planes over 255.0, exactly as the JAX
+package encodes them.  Two sources: the PNG corpus on disk (Pillow is
+imported where a file is read) and an array of uint8 layers, such as the
+committed training fixture, which needs no Pillow.  Random draws take an
+explicit `random.Random`.
+"""
+
+import json
+
+import numpy as np
+
+from .constants import (LAYER_NAMES, LAYER_NAMES_PLAIN, LAYER_TAGS,
+                        TRAIN_DATA_PATH, TRAIN_DATASET_LENGTH, TRAIN_FIXTURE,
+                        VALIDATION_DATA_PATH, VALIDATION_DATASET_LENGTH)
+
+
+def get_layer_names(layer_tags=None):
+    tags = LAYER_TAGS if layer_tags is None else layer_tags
+    return [name for tag in LAYER_TAGS if tag in tags
+            for name in LAYER_NAMES[tag]]
+
+
+def encode_layers(planes):
+    """{layer_name: (H, W) uint8 plane} -> {tag: (1, H, W, C) float64 in
+    [0, 1]}, channels stacked in LAYER_NAMES order per tag."""
+    encoded = {}
+    for tag in LAYER_TAGS:
+        stack = [np.asarray(planes[name]) for name in LAYER_NAMES[tag]
+                 if name in planes]
+        if stack:
+            encoded[tag] = np.stack(stack, axis=-1)[None] / 255.0
+    return encoded
+
+
+class BaseDataset:
+    """A sized source of pages; `get_planes` gives a page's uint8 layer
+    planes by name, `get` encodes them."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def __len__(self):
+        return self.size
+
+    def get(self, idx, layer_tags=None):
+        return encode_layers(self.get_planes(idx, layer_tags=layer_tags))
+
+    def get_planes(self, idx, layer_tags=None):
+        raise NotImplementedError()
+
+
+class Dataset(BaseDataset):
+    """`{idx}_{layer_name}.png` files under a directory (the JAX package's
+    corpus), decoded with Pillow on first use and cached in memory."""
+
+    def __init__(self, size, dirpath, cache=True):
+        super().__init__(size)
+        self.dirpath = dirpath
+        self._cache = {} if cache else None
+
+    def _load(self, idx, layer_name):
+        key = (idx, layer_name)
+        if self._cache is not None and key in self._cache:
+            return self._cache[key]
+        from PIL import Image
+        with Image.open(self.dirpath / f'{idx}_{layer_name}.png') as img:
+            plane = np.asarray(img.convert('L'))
+        if self._cache is not None:
+            self._cache[key] = plane
+        return plane
+
+    def get_planes(self, idx, layer_tags=None):
+        keep = set(get_layer_names(layer_tags))
+        return {name: self._load(idx, name)
+                for name in LAYER_NAMES_PLAIN if name in keep}
+
+
+class ArrayDataset(BaseDataset):
+    """Pages held as one (N, H, W, L) uint8 array whose last axis holds
+    the layers named by `layer_names`."""
+
+    def __init__(self, layers, layer_names):
+        super().__init__(len(layers))
+        self.layers = layers
+        self.index = {name: i for i, name in enumerate(layer_names)}
+
+    def get_planes(self, idx, layer_tags=None):
+        return {name: self.layers[idx, :, :, self.index[name]]
+                for name in get_layer_names(layer_tags)}
+
+
+class RandomSelectDataset(BaseDataset):
+    """A random subset of another dataset, drawn from `rng` (a
+    `random.Random`); the trainer drew its per-stage subsets this way."""
+
+    def __init__(self, size, source_dataset, rng):
+        super().__init__(size)
+        self.source_dataset = source_dataset
+        self.selected = rng.sample(range(len(source_dataset)), size)
+
+    def get(self, idx, layer_tags=None):
+        return self.source_dataset.get(self.selected[idx],
+                                       layer_tags=layer_tags)
+
+
+def load_page_arrays(path=TRAIN_FIXTURE):
+    """(train, validation) ArrayDatasets of a training-pages .npz: uint8
+    `train` and `validation` arrays of (N, H, W, L) layers, and the layer
+    names in `layer_names` (JSON)."""
+    with np.load(path) as f:
+        names = json.loads(str(f['layer_names']))
+        return (ArrayDataset(f['train'], names),
+                ArrayDataset(f['validation'], names))
+
+
+def png_corpus():
+    """(train, validation) Datasets of the PNG corpus under
+    generated_files/data."""
+    return (Dataset(TRAIN_DATASET_LENGTH, TRAIN_DATA_PATH),
+            Dataset(VALIDATION_DATASET_LENGTH, VALIDATION_DATA_PATH))

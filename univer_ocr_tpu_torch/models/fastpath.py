@@ -12,6 +12,8 @@ activations are NHWC.
 import torch
 
 from .. import ops
+from ..nn.models import value_and_grad
+from ..ops.losses import segmentation_dice_2d
 from ..ops.kernels import (CharHeadWeights, fused_char_head,
                            fused_char_head_reference,
                            fused_monochrome_reference, prepare_char_head,
@@ -163,3 +165,63 @@ def monochrome_weights(params, prefix='Monochrome'):
     weights."""
     c1, c2 = params[f'{prefix}/conv_1'], params[f'{prefix}/conv_2']
     return prepare_monochrome(c1['w'], c1['b'], c2['w'], c2['b'])
+
+
+# ---------------------------------------------------------------------------
+# Masked training steps: bucket-padded crops with the per-crop loss and
+# gradients of the unpadded computation.
+#   * Line/Paragraph (Dice): the prediction is masked *after* the final
+#     sigmoid (sigmoid(0) = 0.5 would otherwise inflate the denominator),
+#     the target is zero-padded, so the per-channel Dice equals the
+#     unpadded loss and invalid positions get zero gradient.
+#   * Char (softmax CE): zero-padded label rows add 0 to the loss sum and
+#     their logits get zero gradient, and the mean is taken over the
+#     *true* width, not the padded one.
+# ---------------------------------------------------------------------------
+
+
+def masked_line_loss(params, x, y, h_valid, w_valid, prefix='Line',
+                     reg_fn=None):
+    pred = line_forward_masked(params, x, h_valid, w_valid, prefix=prefix)
+    pred = _mask_hw(pred, h_valid, w_valid)
+    out_loss = segmentation_dice_2d(pred, y)
+    reg = reg_fn(params) if reg_fn is not None else 0.0
+    return out_loss + reg, (out_loss, reg, pred)
+
+
+def masked_char_loss(params, x, y, w_valid, reg_fn=None):
+    """x: (1, 32, Wb, C); y: (Wb, n_chars) zero-padded beyond w_valid (an
+    int)."""
+    logits = char_forward_masked(params, x, w_valid)
+    logits = logits.reshape(-1, logits.shape[-1])     # (Wb, n_chars)
+    shifted = logits - torch.amax(logits, dim=1, keepdim=True)
+    log_probs = shifted - torch.log(
+        torch.sum(torch.exp(shifted), dim=1, keepdim=True))
+    out_loss = -torch.sum(y * log_probs) / w_valid
+    reg = reg_fn(params) if reg_fn is not None else 0.0
+    return out_loss + reg, (out_loss, reg, logits)
+
+
+def make_masked_train_step(opt, loss_fn):
+    """step(params, opt_state, lr, *batch_args) -> (new_params,
+    new_opt_state, out_loss, reg, pred): autograd of
+    `loss_fn(params, *batch_args) -> (total, (out_loss, reg, pred))` over
+    every parameter, then `opt`'s update."""
+    def step(params, opt_state, lr, *batch_args):
+        _, (out_loss, reg, pred), grads = value_and_grad(
+            loss_fn, params, list(params), *batch_args)
+        with torch.no_grad():
+            new_params, new_opt_state = opt.update(params, grads, opt_state,
+                                                   lr)
+        return new_params, new_opt_state, out_loss, reg, pred
+
+    return step
+
+
+def make_masked_eval_step(loss_fn):
+    def step(params, *batch_args):
+        with torch.no_grad():
+            _, (out_loss, reg, pred) = loss_fn(params, *batch_args)
+        return out_loss, reg, pred
+
+    return step

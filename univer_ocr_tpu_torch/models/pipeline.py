@@ -87,9 +87,10 @@ from .. import ops
 from ..device import resolve_device
 from ..interpreter import (_ORIENTATION_KEYS, _extremal_coords,
                            _orientation_code, bbox,
-                           crop_and_rotate_single_paragraph,
+                           crop_and_rotate_single_paragraph, extract_line,
                            find_rotation_angle, label_layer,
-                           pred_ids_to_text, rearrange_lines, rotate_array)
+                           plan_paragraph_lines, pred_ids_to_text,
+                           rotate_array)
 from ..ops.kernels import fused_monochrome
 from ..weights import params_from_numpy, random_params
 from .band_tables import (PROFILE_ROW_DS, _group_centers, _shear_span,
@@ -124,35 +125,9 @@ def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
     """Line bands of one paragraph -> list of zoomed line crops of the
     monochrome image.  `thresholded_input` marks line_pred as already
     thresholded band masks (the device-side threshold)."""
-    def thresholded(arr):
-        if thresholded_input:
-            return arr > 0
-        return arr > 0.5 * (np.mean(arr) + np.max(arr))
-
-    top = thresholded(line_pred[:, :, :, 0:1])
-    bottom = thresholded(line_pred[:, :, :, 1:2])
-    tops, bottoms, rotation = rearrange_lines(
-        label_layer(top), label_layer(bottom))
-
-    lines = []
-    for top_mask, bottom_mask in zip(tops, bottoms):
-        _, ty, tx, _ = bbox(top_mask)
-        _, by, bx, _ = bbox(bottom_mask)
-        y = slice(min(ty.start, by.start), max(ty.stop, by.stop))
-        x = slice(min(tx.start, bx.start), max(tx.stop, bx.stop))
-        img = mono_crop[:, y, x, :]
-        if rotation is not None:
-            img = rotate_array(img, rotation)
-        if zoomed_height is not None:
-            zf = zoomed_height / img.shape[1]
-            img = ndimage.zoom(img, (1, zf, zf, 1), order=0)
-        if minimal_width is not None and img.shape[2] < minimal_width:
-            bs, h, w, ch = img.shape
-            tmp = np.zeros((bs, h, minimal_width, ch), dtype=img.dtype)
-            tmp[:, :, :w, :] = img
-            img = tmp
-        lines.append(img)
-    return lines
+    bboxes, rotation = plan_paragraph_lines(line_pred, thresholded_input)
+    return [extract_line(mono_crop, b, rotation, zoomed_height,
+                         minimal_width) for b in bboxes]
 
 
 def _to_u8(x):

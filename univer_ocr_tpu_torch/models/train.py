@@ -1,0 +1,217 @@
+"""Curriculum training (univer_ocr_tpu/models/train.py): the five-stage
+curriculum MONOCHROME -> PARAGRAPH -> LINE -> CHAR -> ALL over
+`make_model_system` and `Trainer`, with the best weights of every stage
+merge-saved into a checkpoint.
+
+    python -m univer_ocr_tpu_torch.models.train [--cpu] [--data NPZ|DIR]
+        [--weights-in JSON] [--weights-out JSON] [--epochs N]
+        [--train-size N] [--val-size N] [--seed N]
+
+`--data` is a training-pages .npz (default: the committed fixture,
+univer_ocr_tpu_torch/fixtures/train_pages.npz: 2 pages to train, 1 to
+validate) or the directory of a PNG corpus with `train/` and
+`validation/` (the JAX package's `run.py generate_data` writes one under
+generated_files/data; reading it needs Pillow).  Training starts from
+`--weights-in` (default: the JAX package's committed checkpoint, which is
+only read) and writes `--weights-out` (default
+generated_files/model_weights_torch.json).  `--epochs` replaces every
+stage's epoch count.
+"""
+
+import argparse
+import json
+import random
+from pathlib import Path
+from pprint import pprint
+
+from ..device import resolve_device
+from ..nn.checkpoint import write_weights
+from ..nn.optimizers import Adam
+from ..nn.progress_tracker import ProgressTracker
+from ..ops.precision import backend_flags
+from ..weights import DEFAULT_CHECKPOINT
+from .constants import TRAIN_FIXTURE, TRAINED_WEIGHTS_PATH
+from .datasets import Dataset, RandomSelectDataset, load_page_arrays
+from .model import Modes, make_context_maker, make_model_system
+from .trainer import Trainer
+
+#: (mode, lr, lr decay step, epochs) of each stage, the reference's table
+CURRICULUM = [
+    (Modes.TRAIN_MONOCHROME, 0.0015, 0.995, 100),
+    (Modes.TRAIN_PARAGRAPH, 0.0015, 0.995, 100),
+    (Modes.TRAIN_LINE, 0.0015, 0.995, 100),
+    (Modes.TRAIN_CHAR, 0.0015, 0.9, 10),
+    (Modes.TRAIN_ALL, 0.001, 0.9, 10),
+]
+
+
+class TrainReporter:
+    """A training run's telemetry on the console: `message` and `info`
+    print; `status` (the dashboard's per-layer timing events) shows
+    nothing there, as the JAX package's reporter with no client."""
+
+    def message(self, *parts, sep=' ', end='\n'):
+        print(sep.join(str(part) for part in parts) + end)
+
+    def info(self, info):
+        for info_type, info_data in info.items():
+            print(f'{info_type}:')
+            pprint(info_data, indent=4)
+            print()
+
+    def status(self, status_type, status_data=None):
+        pass
+
+
+def _read_weights(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        print(f'No checkpoint found at {path}')
+        return {}
+
+
+def _model_info(models, names):
+    """The layer names, output shapes and receptive fields the JAX
+    package reports for a stage."""
+    layer_names = names + [
+        layer_name
+        for model in models.values()
+        for layer_name in model.get_leaf_layers().keys()
+    ]
+    output_shapes = {}
+    for model_name, model in models.items():
+        outs, per_layer = model.get_all_output_shapes(model.input_shapes)
+        for layer_name, shapes in {model_name: outs, **per_layer}.items():
+            output_shapes[layer_name] = [str(x) for x in shapes]
+    receptive_fields = {}
+    for model in models.values():
+        if not model.is_fully_convolutional():
+            continue
+        for layer_name, rf in model.get_receptive_fields().items():
+            y, x = rf['input 0']['y'], rf['input 0']['x']
+            cnt = rf['input 0']['cnt']
+            receptive_fields[layer_name] = f'y={y}, x={x}, size={cnt}'
+    return {'layer_names': layer_names, 'output_shapes': output_shapes,
+            'receptive_fields': receptive_fields}
+
+
+def train_model(train_dataset, validation_dataset, curriculum=None,
+                train_size=50, val_size=5, seed=0,
+                weights_in=DEFAULT_CHECKPOINT,
+                weights_out=TRAINED_WEIGHTS_PATH, device=None,
+                show_progress_bar=False, reporter=None):
+    """Run the curriculum (CURRICULUM unless given: (mode, lr, lr_step,
+    epochs) per stage) on `device` (None: the card).
+
+    Each stage draws `train_size` / `val_size` pages of the datasets from
+    one `random.Random(seed)` (which also orders every sweep), builds its
+    model system with `Adam(lr)` from the checkpoint's current weights
+    and trains it; the models whose validation loss improved are merged
+    into the checkpoint after each epoch, which is then written to
+    `weights_out` atomically.  The checkpoint starts as `weights_in`;
+    `weights_out` may not be the JAX package's committed checkpoint.
+    The whole call runs in full float32 (`backend_flags('highest')`: TF32
+    off for convolutions and matrix products), as JAX trains.
+
+    Returns one dict per stage: mode, best validation losses and epochs,
+    rollbacks, and the sample orders the trainer drew.
+    """
+    device = resolve_device(device)
+    weights_out = Path(weights_out)
+    if weights_out.resolve() == Path(DEFAULT_CHECKPOINT).resolve():
+        raise ValueError('train_model does not write the committed '
+                         f'checkpoint {DEFAULT_CHECKPOINT}; pass another '
+                         'weights_out')
+    reporter = TrainReporter() if reporter is None else reporter
+    rng = random.Random(seed)
+    tracker = ProgressTracker(reporter.status)
+    tracker.reset()
+    weights_out.parent.mkdir(parents=True, exist_ok=True)
+    # the checkpoint, kept in memory: weights_out always holds it
+    checkpoint = _read_weights(weights_in)
+    write_weights(checkpoint, weights_out)
+
+    results = []
+    with backend_flags('highest'):
+        for mode, lr, lr_step, epochs in (CURRICULUM if curriculum is None
+                                          else curriculum):
+            print(f'Training mode: {mode.name}')
+            train_pages = RandomSelectDataset(train_size, train_dataset, rng)
+            val_pages = RandomSelectDataset(val_size, validation_dataset,
+                                            rng)
+            input_shape = train_pages.get(0, layer_tags=['image'])[
+                'image'].shape
+            reporter.message(f'Input shape: {input_shape}')
+
+            optimizer = Adam(lr=lr)
+            model_system, models, names = make_model_system(
+                input_shape, optimizer, tracker, checkpoint, mode=mode,
+                device=device)
+
+            def save_improved(models_to_update, models=models):
+                for name in models_to_update:
+                    checkpoint.update(models[name].get_weights())
+                write_weights(checkpoint, weights_out)
+
+            reporter.info(_model_info(models, names))
+            reporter.message('Count of parameters: ' + str(sum(
+                model.count_parameters() for model in models.values())))
+
+            trainer = Trainer(
+                model_system, make_context_maker(mode, device), models,
+                train_pages, val_pages, progress_tracker=tracker,
+                show_progress_bar=show_progress_bar, optimizer=optimizer,
+                learning_rate_step=lr_step, save_weights_func=save_improved,
+                rng=rng)
+            best_loss, best_loss_epoch = trainer.train(num_epochs=epochs)
+            reporter.message(f'Complete. Best loss was {best_loss} '
+                             f'on epoch #{best_loss_epoch}')
+            results.append({'mode': mode.name, 'best_losses': best_loss,
+                            'best_epochs': best_loss_epoch,
+                            'rollbacks': trainer.rollbacks,
+                            'orders': trainer.orders})
+    return results
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--cpu', action='store_true',
+                        help='run on the CPU instead of the card')
+    parser.add_argument('--data', default=str(TRAIN_FIXTURE),
+                        help='training-pages .npz or PNG corpus directory')
+    parser.add_argument('--weights-in', default=str(DEFAULT_CHECKPOINT))
+    parser.add_argument('--weights-out', default=str(TRAINED_WEIGHTS_PATH))
+    parser.add_argument('--epochs', type=int, default=None,
+                        help="every stage's epochs (default: the "
+                             "curriculum's)")
+    parser.add_argument('--train-size', type=int, default=None,
+                        help='pages per stage (default: all)')
+    parser.add_argument('--val-size', type=int, default=None)
+    parser.add_argument('--seed', type=int, default=0)
+    args = parser.parse_args(argv)
+
+    data = Path(args.data)
+    if data.is_dir():
+        train, validation = (Dataset(len(list(d.glob('*_image.png'))), d)
+                             for d in (data / 'train', data / 'validation'))
+    else:
+        train, validation = load_page_arrays(data)
+    curriculum = [(mode, lr, step, epochs if args.epochs is None
+                   else args.epochs)
+                  for mode, lr, step, epochs in CURRICULUM]
+    results = train_model(
+        train, validation, curriculum,
+        train_size=args.train_size or len(train),
+        val_size=args.val_size or len(validation), seed=args.seed,
+        weights_in=args.weights_in, weights_out=args.weights_out,
+        device='cpu' if args.cpu else None)
+    for stage in results:
+        print(stage['mode'], {name: list(map(float, v))
+                              for name, v in stage['best_losses'].items()})
+    return results
+
+
+if __name__ == '__main__':
+    main()

@@ -3,6 +3,10 @@
 import torch
 
 
+def relu(x):
+    return torch.where(x >= 0, x, torch.zeros_like(x))
+
+
 def leaky_relu(x, alpha=0.01):
     return torch.where(x >= 0, x, alpha * x)
 

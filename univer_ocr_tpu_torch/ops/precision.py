@@ -18,15 +18,29 @@ import contextlib
 import torch
 
 VALID_MODES = ('highest', 'bf16')
-DEFAULT_MODE = 'highest'
+
+_default_mode = 'highest'
 
 
-def resolve(mode=None):
-    """The effective mode (None -> 'highest'); raises on an unknown one."""
-    mode = DEFAULT_MODE if mode is None else mode
+def _checked(mode):
     if mode not in VALID_MODES:
         raise ValueError(f'precision must be one of {VALID_MODES}: {mode!r}')
     return mode
+
+
+def set_default_precision(mode):
+    """Set the mode that `resolve(None)` returns: the module default of
+    code that threads no policy (training, the per-page path).  Pipelines
+    pass their mode explicitly and are not affected."""
+    global _default_mode
+    _default_mode = _checked(mode)
+
+
+def resolve(mode=None):
+    """The effective mode: an explicit policy or the module default
+    ('highest' unless set_default_precision changed it); raises on an
+    unknown one."""
+    return _default_mode if mode is None else _checked(mode)
 
 
 @contextlib.contextmanager
