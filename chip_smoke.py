@@ -75,6 +75,29 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            (well-formed text, similarity to the committed checkpoint's
            printed).  Training launches neither kernel (its count must
            stay 0)
+  batched_train_path
+           the batched predicted-crop trainer (models/dp_train.py) and the
+           eval gate (models/evaluation.py): each batched stage on the
+           training fixture's pages from the committed checkpoint (2
+           train pages, the validation page, batch 16, seed 0, 1 epoch;
+           Line and Char on predicted crops in 'highest' and 'bf16')
+           held against the JAX numbers in fixtures/train_batched.npz
+           (the same sample counts and shapes, the first step within
+           BATCHED_FIRST_RTOL, the rest within BATCHED_LATER_RTOL), with
+           the seconds to build its samples, ms per train step and per
+           eval batch (median over the stage, and in steady state: its
+           first batch repeated STEADY_REPS times after a warm-up),
+           train samples/s and its peak device memory; then
+           train_model(batched=True, predicted=True,
+           eval_gate=True) over the curriculum at 1 epoch, writing
+           build/batched/ (launch counts from 0 just before it; both
+           kernels must launch: the predicted samples' front and the gate's
+           serving pipeline), its seconds and each gate score's; then
+           the gate alone: the committed checkpoint's score of the
+           fixtures/eval_pages.npz corpus within GATE_SCORE_TOL of JAX's,
+           a random-weight Char model rejected with its checkpoint's
+           bytes unchanged, the committed weights approved; and both
+           kernels against their plain versions at this path's shapes
   times    CUDA-event times of each kernel and its plain version at the
            paths' shapes (the Char head at every width each path
            launched) beside their bounds; the JAX device cascade's Char
@@ -186,6 +209,30 @@ FIRST_STEP_RTOL = 1e-5
 #: as two card runs can (the bars are measured on an H100; PERF.md §6)
 TRAIN_RTOL = {'Monochrome': (1e-4, 0.0, 1e-3), 'Paragraph': (1e-4, 0.0, 1e-3),
               'Line': (1e-4, 0.0, 1e-3), 'Char': (0.5, 0.5, 0.2)}
+#: the batched trainer's JAX numbers on the training fixture's pages
+#: (tests/test_torch_batched_fixture.py) and the eval corpus with JAX's
+#: score of the committed checkpoint (tests/test_torch_eval_fixture.py)
+BATCHED_FIXTURE = (ROOT / 'univer_ocr_tpu_torch' / 'fixtures'
+                   / 'train_batched.npz')
+EVAL_FIXTURE = ROOT / 'univer_ocr_tpu_torch' / 'fixtures' / 'eval_pages.npz'
+#: a batched stage against JAX's numbers, relative: its first train
+#: step's per-sample losses (a forward of the same weights), the initial
+#: validation sweep (whole-page float32 Dice sums in another order), and
+#: per model the later steps, the validation after the epoch and the
+#: update norms (measured on an H100: at most 2.3e-5 for Monochrome,
+#: Paragraph and Line, 1.1e-3 for Char, whose Adam steps are sign-like;
+#: PERF.md §6).  Samples predicted in 'bf16' are held to JAX's counts
+#: only: the card's front runs Monochrome in float32 (the kernel), JAX's
+#: CPU reference in bfloat16, so a crop may come out a pixel wider
+BATCHED_FIRST_RTOL = 1e-5
+BATCHED_INITIAL_VAL_RTOL = 5e-5
+BATCHED_LATER_RTOL = {'Monochrome': 1e-3, 'Paragraph': 1e-3, 'Line': 1e-3,
+                      'Char': 2e-2}
+#: the eval gate's score of the committed checkpoint against JAX's
+#: stored score (absolute; per-page text holds to TEXT_SIMILARITY)
+GATE_SCORE_TOL = 0.01
+#: steady-state repetitions of a batched stage's first batch
+STEADY_REPS = 5
 
 
 @contextlib.contextmanager
@@ -933,6 +980,336 @@ def train_path(expected_fused, fixture_list):
     return launches
 
 
+@contextlib.contextmanager
+def recorded_batched_steps(record):
+    """Wrap dp_train's batched step factories: each train and eval step's
+    per-sample losses and host ms (ending in a synchronize) go to
+    `record`, and the last train step's parameters to record['params']."""
+    from univer_ocr_tpu_torch.models import dp_train
+    makers = {name: getattr(dp_train, name)
+              for name in ('make_batched_seg_step', 'make_batched_char_step')}
+
+    def recording(make):
+        def wrapped(*args, **kwargs):
+            train_step, eval_step = make(*args, **kwargs)
+
+            def train_rec(*a):
+                t0 = time.perf_counter()
+                params, state, per = train_step(*a)
+                torch.cuda.synchronize()
+                record['train_ms'].append((time.perf_counter() - t0) * 1e3)
+                record['train'].append(per.tolist())
+                record['params'] = params
+                return params, state, per
+
+            def eval_rec(*a):
+                t0 = time.perf_counter()
+                per = eval_step(*a)
+                torch.cuda.synchronize()
+                record['eval_ms'].append((time.perf_counter() - t0) * 1e3)
+                record['eval'].append(per.tolist())
+                return per
+            return train_rec, eval_rec
+        return wrapped
+
+    for name, make in makers.items():
+        setattr(dp_train, name, recording(make))
+    try:
+        yield record
+    finally:
+        for name, make in makers.items():
+            setattr(dp_train, name, make)
+
+
+def batched_stage(stage, train, validation, weights, record):
+    """One batched stage of the reference (tests/test_torch_batched_
+    fixture.py) on the card: its samples from the committed checkpoint
+    (predicted crops in the precision after the '/'), then
+    train_stage_batched for 1 epoch, batch 16, seed 0, each step
+    recorded.  Returns the steps, sweeps, update norms, counts, build
+    seconds and the peak device memory."""
+    from univer_ocr_tpu_torch.models import dp_train
+    from univer_ocr_tpu_torch.models.model import Modes
+    from univer_ocr_tpu_torch.models.train import CURRICULUM
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+    mode = Modes[stage.split('/')[0]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if '/' in stage:
+        samples = [dp_train.collect_stage_samples_predicted(
+            mode, ds, weights, precision=stage.split('/')[1], device='cuda',
+            log=lambda *a: None) for ds in (train, validation)]
+    else:
+        samples = [dp_train.collect_stage_samples(mode, ds)
+                   for ds in (train, validation)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    record.update(train=[], eval=[], train_ms=[], eval_ms=[], params=None)
+    lr, lr_step = next((lr, step) for m, lr, step, _ in CURRICULUM
+                       if m is mode)
+    t0 = time.perf_counter()
+    model, _ = dp_train.train_stage_batched(
+        mode, *samples, weights, epochs=1, lr=lr, lr_step=lr_step, batch=16,
+        seed=0, log=lambda *a: None, device='cuda')
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    n_val = len(record['eval']) // 2
+    out = {
+        'model': dp_train._STAGE_MODEL[mode][0],
+        'counts': [len(s) for s in samples],
+        'shapes': [list(x.shape) for x, _ in samples[0]],
+        'samples': samples,
+        'train_steps': record['train'],
+        'val_sweeps': [sum(record['eval'][:n_val], []),
+                       sum(record['eval'][n_val:], [])],
+        'update_norms': {
+            f'{layer}/{key}': float(torch.linalg.vector_norm(
+                value.double() - torch.tensor(weights[layer][key],
+                                              dtype=torch.float64,
+                                              device='cuda')))
+            for layer, params in record['params'].items()
+            for key, value in params.items()},
+        'build_s': build_s, 'stage_s': stage_s,
+        'train_ms': list(record['train_ms']),
+        'eval_ms': list(record['eval_ms']),
+        'peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+    }
+    # steady state: the stage's first batch again, one warm-up, then
+    # STEADY_REPS recorded train steps and eval batches
+    record.update(train=[], eval=[], train_ms=[], eval_ms=[])
+    if mode is Modes.TRAIN_CHAR:
+        train_step, eval_step = dp_train.make_batched_char_step(model)
+    else:
+        train_step, eval_step = dp_train.make_batched_seg_step(model,
+                                                               out['model'])
+    args = dp_train._upload(dp_train.make_batches(samples[0], mode, 16)[0],
+                            torch.device('cuda'))
+    params = model.params
+    state = model._optimizer().init_state(params)
+    with backend_flags('highest'):
+        for _ in range(STEADY_REPS + 1):
+            train_step(params, state, lr, *args)
+            eval_step(params, *args)
+    out['steady_train_ms'] = float(np.median(record['train_ms'][1:]))
+    out['steady_eval_ms'] = float(np.median(record['eval_ms'][1:]))
+    return out
+
+
+def compare_batched(stage, got, ref):
+    """A batched stage on the card against JAX's numbers: the counts and
+    shapes equal, the first step within BATCHED_FIRST_RTOL, the initial
+    validation within BATCHED_INITIAL_VAL_RTOL, the rest within the
+    model's BATCHED_LATER_RTOL; a 'bf16' stage its counts only.  Returns
+    what failed (empty when all held)."""
+    if got['counts'] != ref['counts']:
+        return [f'{stage}: samples {got["counts"]}, JAX {ref["counts"]}']
+    shapes = sum(g != r for g, r in zip(got['shapes'], ref['shapes']))
+    steps_match = np.shape(got['train_steps']) == np.shape(ref['train_steps'])
+    if stage.endswith('/bf16'):
+        first = (float(_rel(got['train_steps'][0],
+                            ref['train_steps'][0]).max())
+                 if steps_match else None)
+        print(f'  {stage}: samples {got["counts"]} as JAX\'s, {shapes} '
+              f'input shapes differ, the steps\' shapes '
+              f'{"equal" if steps_match else "differ"}; first step against '
+              f'JAX {first} (not gated)', flush=True)
+        return []
+    if shapes or not steps_match:
+        return [f'{stage}: samples {got["shapes"]}, steps '
+                f'{np.shape(got["train_steps"])}, JAX {ref["shapes"]} '
+                f'{np.shape(ref["train_steps"])}']
+    errs = {
+        'first': float(_rel(got['train_steps'][0],
+                            ref['train_steps'][0]).max()),
+        'steps': float(_rel(got['train_steps'], ref['train_steps']).max()),
+        'initial_val': float(_rel(got['val_sweeps'][0],
+                                  ref['val_sweeps'][0]).max()),
+        'val': float(_rel(got['val_sweeps'][1], ref['val_sweeps'][1]).max()),
+        'norms': max(float(_rel(got['update_norms'][k], v))
+                     for k, v in ref['update_norms'].items()),
+    }
+    later = BATCHED_LATER_RTOL[got['model']]
+    print(f'  {stage}: samples {got["counts"]}, against JAX, relative: '
+          f'{json.dumps(errs)}', flush=True)
+    failed = []
+    if errs['first'] > BATCHED_FIRST_RTOL:
+        failed.append(f'{stage}: first step {errs["first"]} off JAX')
+    if errs['initial_val'] > BATCHED_INITIAL_VAL_RTOL:
+        failed.append(f'{stage}: initial validation off JAX: {errs}')
+    if max(errs['steps'], errs['val'], errs['norms']) > later:
+        failed.append(f'{stage}: later steps off JAX (> {later}): {errs}')
+    return failed
+
+
+class QuietReporter:
+    """train_model's reporter: keeps every message, prints the batched
+    stages' and the gate's."""
+
+    def __init__(self):
+        self.messages = []
+
+    def message(self, *parts, sep=' ', end='\n'):
+        text = sep.join(str(part) for part in parts)
+        self.messages.append(text)
+        if any(key in text for key in ('gate', '===', 'built')):
+            print(f'  {text.strip()}', flush=True)
+
+    def info(self, info):
+        pass
+
+    def status(self, status_type, status_data=None):
+        pass
+
+
+def batched_train_path(weights, params, mono_prep, char_prep, mono_w,
+                       char_w, rng):
+    """Phase batched_train_path: each batched stage of the reference on
+    the card against JAX's numbers, with its times and peak memory; then
+    train_model(batched=True, predicted=True, eval_gate=True) over the
+    curriculum at 1 epoch (the main path of this phase: launches counted
+    from 0 just before it); the gate alone (the committed checkpoint's
+    score against JAX's, a random Char model rejected with its checkpoint
+    unchanged, the committed weights approved); and both kernels against
+    their plain versions at this path's shapes.  Returns (launches,
+    max_abs_err per kernel)."""
+    from univer_ocr_tpu_torch.models import dp_train, evaluation
+    from univer_ocr_tpu_torch.models.datasets import load_page_arrays
+    from univer_ocr_tpu_torch.models.model import Modes, make_char
+    from univer_ocr_tpu_torch.models.train import CURRICULUM, train_model
+    from univer_ocr_tpu_torch.nn.checkpoint import write_weights
+    from univer_ocr_tpu_torch.ops import kernels
+    from univer_ocr_tpu_torch.ops.kernels import LAUNCHES, char_head
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+    train, validation = load_page_arrays(TRAIN_FIXTURE)
+    with np.load(BATCHED_FIXTURE) as f:
+        reference = json.loads(str(f['reference']))
+    with np.load(EVAL_FIXTURE) as f:
+        jax_score = json.loads(str(f['score']))
+
+    stages, failed = {}, []
+    with recorded_batched_steps({}) as record:
+        for stage, ref in reference.items():
+            got = batched_stage(stage, train, validation, weights, record)
+            stages[stage] = got
+            failed += compare_batched(stage, got, ref)
+            n_train = got['counts'][0]
+            print(f'  {stage} times: ' + json.dumps({
+                'build_s': got['build_s'], 'stage_s': got['stage_s'],
+                'train_step_ms': float(np.median(got['train_ms'])),
+                'train_steps': len(got['train_ms']),
+                'eval_batch_ms': float(np.median(got['eval_ms'])),
+                'eval_batches': len(got['eval_ms']),
+                'steady_train_step_ms': got['steady_train_ms'],
+                'steady_eval_batch_ms': got['steady_eval_ms'],
+                'train_samples_per_s': n_train * 1e3 / sum(got['train_ms']),
+                'peak_gib': got['peak_gib']}), flush=True)
+
+    # the main path: the batched curriculum through its CLI's entry point
+    out_dir = ROOT / 'build' / 'batched'
+    gate_s = []
+    score_weights = evaluation.score_weights
+
+    def timed_score(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = score_weights(*args, **kwargs)
+        torch.cuda.synchronize()
+        gate_s.append(time.perf_counter() - t0)
+        return out
+
+    evaluation.score_weights = timed_score
+    reporter = QuietReporter()
+    try:
+        curriculum = [(mode, lr, step, 1) for mode, lr, step, _ in CURRICULUM]
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        char_head.WIDTH_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        results = train_model(train, validation, curriculum, train_size=2,
+                              val_size=1, seed=0,
+                              weights_out=out_dir / 'model_weights.json',
+                              device='cuda', reporter=reporter, batched=True,
+                              batch=16, predicted=True, eval_gate=True)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        widths = dict(sorted(char_head.WIDTH_LAUNCHES.items()))
+    finally:
+        evaluation.score_weights = score_weights
+    decisions = [m for m in reporter.messages if m.startswith('[eval-gate]')]
+    print(f'  train_model(batched=True, predicted=True, eval_gate=True), 5 '
+          f'stages x 1 epoch: {total_s:.2f} s; gate scores (8 pages each) '
+          f'{[round(t, 3) for t in gate_s]} s; launches {launches}, '
+          f'fused_char_head by width {widths}', flush=True)
+    for r in results:
+        best = {k: list(map(float, v)) for k, v in r['best_losses'].items()}
+        print(f'  {r["mode"]}: samples {r.get("samples")}, best {best}',
+              flush=True)
+        if not all(np.isfinite(v).all() for v in r['best_losses'].values()):
+            raise AssertionError(f'batched train_model {r["mode"]}: {r}')
+    if len(decisions) != 1 + len(results):
+        raise AssertionError(f'the gate decided {decisions}')
+    with open(out_dir / 'model_weights.json') as fp:
+        written = json.load(fp)
+    if sorted(written) != sorted(weights):
+        raise AssertionError(f'batched train_model wrote {sorted(written)}')
+    for name in ('fused_monochrome', 'fused_char_head'):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f'{name} did not launch on the batched '
+                                 f'train path')
+
+    # the gate alone, on a copy of the committed checkpoint
+    path = out_dir / 'gate.json'
+    write_weights(weights, path)
+    gate = evaluation.make_eval_gate(path, log=print, device='cuda')
+    before = path.read_bytes()
+    dp_train.train_stage_batched(
+        Modes.TRAIN_CHAR, *stages['TRAIN_CHAR/highest']['samples'], {},
+        epochs=0, lr=1e-3, lr_step=0.9, checkpoint_path=path,
+        eval_gate=gate, log=print, device='cuda')
+    if path.read_bytes() != before:
+        raise AssertionError('a rejected random Char model changed the '
+                             'checkpoint')
+    committed = make_char(PAGE_SHAPE, device='cuda')
+    committed.set_weights(weights)
+    ok, score, incumbent = gate({'Char': committed})
+    print(f'  gate: committed checkpoint {incumbent:.6f} against JAX\'s '
+          f'{jax_score["concat"]:.6f} (bar {GATE_SCORE_TOL}); the committed '
+          f'weights as a candidate {score:.6f}: '
+          f'{"approved" if ok else "REJECTED"}', flush=True)
+    if abs(incumbent - jax_score['concat']) > GATE_SCORE_TOL:
+        raise AssertionError('the gate\'s score of the committed checkpoint '
+                             'is off JAX\'s')
+    if not ok:
+        raise AssertionError('the gate rejected the committed weights')
+
+    # both kernels at this path's shapes: the sample fronts' chunks of 2
+    # train pages and 1 validation page; the gate's fused tail
+    errors = {'fused_monochrome': 0.0, 'fused_char_head': 0.0}
+    with backend_flags('highest'):
+        for n in (2, 1):
+            x = torch.tensor(rng.random((n,) + PAGE_SHAPE[1:],
+                                        dtype=np.float32), device='cuda')
+            errors['fused_monochrome'] = max(
+                errors['fused_monochrome'],
+                compare(f'fused_monochrome {tuple(x.shape)}',
+                        kernels.fused_monochrome(x, mono_prep),
+                        kernels.fused_monochrome_reference(x, *mono_w),
+                        MONO_TOL))
+        for width in widths:
+            x = char_inputs(params, rng, DEVICE_LINES, width)
+            errors['fused_char_head'] = max(
+                errors['fused_char_head'],
+                compare(f'fused_char_head {tuple(x.shape)}',
+                        kernels.fused_char_head(x, char_prep),
+                        kernels.fused_char_head_reference(x, *char_w),
+                        CHAR_TOL))
+    if failed:
+        raise AssertionError('batched stages off JAX\'s numbers: '
+                             + '; '.join(failed))
+    return launches, errors
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this run '
@@ -949,7 +1326,8 @@ def main():
     from univer_ocr_tpu_torch.ops import kernels
     from univer_ocr_tpu_torch.ops.kernels import _build
     from univer_ocr_tpu_torch.ops.precision import backend_flags
-    from univer_ocr_tpu_torch.weights import load_checkpoint
+    from univer_ocr_tpu_torch.weights import (DEFAULT_CHECKPOINT,
+                                              load_checkpoint)
 
     with phase('device'):
         smi = subprocess.run(
@@ -1189,6 +1567,15 @@ def main():
             if any(launches['train_path'].values()):
                 raise AssertionError('train_path launched a kernel: '
                                      f'{launches["train_path"]}')
+
+        with phase('batched_train_path'):
+            with open(DEFAULT_CHECKPOINT) as fp:
+                committed = json.load(fp)
+            launches['batched_train_path'], batched_errors = (
+                batched_train_path(committed, params, mono_prep, char_prep,
+                                   mono_w, char_w, rng))
+            for name, err in batched_errors.items():
+                errors[name] = max(errors[name], err)
 
         with phase('times'), backend_flags('highest'):
             print(f'times on: {card}', flush=True)

@@ -240,7 +240,9 @@ NEW_MODULES = ['ops/pool.py', 'ops/losses.py', 'ops/regularizers.py',
                'nn/regularizations.py', 'nn/metrics.py', 'nn/optimizers.py',
                'nn/models.py', 'nn/model_system.py', 'nn/checkpoint.py',
                'models/model.py', 'models/trainer.py', 'models/datasets.py',
-               'models/constants.py', 'models/train.py']
+               'models/constants.py', 'models/train.py',
+               'models/dp_train.py', 'models/evaluation.py',
+               'models/predict.py']
 
 
 @pytest.mark.parametrize('module', NEW_MODULES)

@@ -195,9 +195,13 @@ def test_train_model_never_writes_the_committed_checkpoint(windows):
 
 
 def test_predict_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tmodel.make_model_system(SHAPE, mode=tmodel.Modes.PREDICT,
-                                 device='cpu')
+    """Modes.PREDICT, once left out, now builds JAX's whole cascade (held
+    against JAX's text in tests/test_torch_predict_mode.py)."""
+    _, t_models, t_names = tmodel.make_model_system(
+        SHAPE, mode=tmodel.Modes.PREDICT, device='cpu')
+    _, j_models, j_names = jmodel.make_model_system(SHAPE)
+    assert t_names == j_names and list(t_models) == list(j_models)
+    assert t_names[-1] == 'PredToText'
 
 
 def test_png_dataset_equals_jax(tmp_path):

@@ -403,3 +403,23 @@ def pred_ids_to_text(ids, valid, collapse_runs=False):
         result += cur_char
         prev_char = cur_char
     return result
+
+
+def pred_to_text_line(prediction, collapse_runs=False):
+    """(W, len(CHARS)) scores -> decoded string: the per-column argmax,
+    columns whose maximum is exactly 0 skipped, then pred_ids_to_text."""
+    prediction = np.asarray(prediction)
+    return pred_ids_to_text(prediction.argmax(axis=1),
+                            prediction.max(axis=1) != 0.0, collapse_runs)
+
+
+class PredToText(StagePool):
+    """Decode per-line predictions to text ([paragraph][line])."""
+
+    def __init__(self, workers_count=None, collapse_runs=False):
+        super().__init__(workers_count)
+        self.collapse_runs = collapse_runs
+
+    def __call__(self, prediction):
+        return self.map_nested(pred_to_text_line, prediction,
+                               self.collapse_runs)

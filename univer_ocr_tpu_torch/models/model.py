@@ -1,5 +1,4 @@
-"""Model zoo and the training cascade's assembly (the training half of
-univer_ocr_tpu/models/model.py).
+"""Model zoo and the cascade's assembly (univer_ocr_tpu/models/model.py).
 
 The same architectures and checkpoint namespace as the JAX package:
   * Monochrome: conv block [16, 1], 3x3, Dice;
@@ -10,10 +9,12 @@ The same architectures and checkpoint namespace as the JAX package:
 and the same component order Monochrome -> rename -> Paragraph ->
 from_device -> ParagraphCrop -> to_device -> Line -> from_device ->
 LineCrop -> CharLabel -> to_device -> Char, with a subset per training
-mode.  The Line and Char stages train one crop, then one line, at a time
-(the reference's trajectory) through the masked steps of fastpath.py on
-bucket-padded shapes.  The per-page predict mode is not ported
-(`make_model_system` raises for it).
+mode, and all of it, then PredToText, in the per-page PREDICT mode.  The
+Line and Char stages train one crop, then one line, at a time (the
+reference's trajectory) through the masked steps of fastpath.py on
+bucket-padded shapes; in PREDICT mode they batch the page's crops and
+lines by shape bucket through the masked forwards, in the JAX package's
+batch shapes.
 
 Tensors live on one explicit device: the staging components copy host
 arrays there as float32 (the JAX package's default type) and pull
@@ -29,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..interpreter import (CropAndRotateParagraphs, CropRotateAndZoomLines,
-                           LabelChar)
+                           LabelChar, PredToText)
 from ..nn.help_func import make_list_if_not
 from ..nn.layers import (Conv2DToBatchedFixedWidthed, Convolutional2D,
                          Flatten, FullyConnected, LeakyRelu, Sigmoid,
@@ -47,11 +48,16 @@ from ..primitives import CHARS
 from .bucketing import (CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT,
                         make_divisible_by, round_up)
 from .constants import LAYER_NAMES
-from .fastpath import (make_masked_eval_step, make_masked_train_step,
+from .fastpath import (char_forward_masked, line_forward_masked,
+                       make_masked_eval_step, make_masked_train_step,
                        masked_char_loss, masked_line_loss)
 
 #: crop-shape bucket of the masked Line and Char train steps
 TRAIN_BUCKET = 128
+#: PREDICT mode: the bucket of paragraph crops' heights and widths and of
+#: line crops' widths (multiples of 16, as the FCN's strides need)
+PARAGRAPH_BUCKET = 64
+LINE_WIDTH_BUCKET = 64
 
 
 def make_conv(out_ch, kernel_size=(5, 5), padding=2, **kwargs):
@@ -472,6 +478,84 @@ class FastCharTrainComponent(_MaskedTrainComponent):
                 self.name, []).append(acc)
 
 
+def _pow2_batch(n):
+    """The batch bucket of n samples: the next power of two."""
+    return 1 << (n - 1).bit_length()
+
+
+class FastLineComponent(ModelComponent):
+    """PREDICT-mode Line component: the paragraph crops bucketed by shape
+    (multiples of PARAGRAPH_BUCKET), each bucket batched to the next power
+    of two through the masked forward (fastpath.py), which keeps each
+    crop's output that of the crop alone."""
+
+    def predict(self, context):
+        crops = context[self.selector.X_label]
+        groups = {}
+        for i, c in enumerate(crops):
+            groups.setdefault((round_up(c.shape[1], PARAGRAPH_BUCKET),
+                               round_up(c.shape[2], PARAGRAPH_BUCKET)),
+                              []).append(i)
+        device = self.model._compute_device()
+        preds = [None] * len(crops)
+        for (hb, wb), idxs in groups.items():
+            n = _pow2_batch(len(idxs))
+            batch = torch.zeros((n, hb, wb, crops[idxs[0]].shape[3]),
+                                device=device)
+            hs = torch.full((n,), 4, dtype=torch.int64)
+            ws = torch.full((n,), 4, dtype=torch.int64)
+            for bi, i in enumerate(idxs):
+                c = torch.as_tensor(crops[i]).to(device=device,
+                                                 dtype=torch.float32)
+                batch[bi, :c.shape[1], :c.shape[2], :] = c[0]
+                hs[bi], ws[bi] = c.shape[1], c.shape[2]
+            with torch.no_grad():
+                out = line_forward_masked(self.model.params, batch,
+                                          hs.to(device), ws.to(device),
+                                          prefix='Line')
+            for bi, i in enumerate(idxs):
+                preds[i] = out[bi:bi + 1, :crops[i].shape[1],
+                               :crops[i].shape[2], :]
+        context['prediction'][self.name] = preds
+        context[self.selector.pred_label] = preds
+
+
+class FastCharComponent(ModelComponent):
+    """PREDICT-mode Char component: every line of every paragraph,
+    bucketed by width (multiples of LINE_WIDTH_BUCKET), each bucket
+    batched to the next power of two through the masked Char forward
+    (head 'xla', the plain dense chain)."""
+
+    def predict(self, context):
+        nested = context[self.selector.X_label]
+        preds = [[None] * len(para) for para in nested]
+        flat = [(p_id, l_id, line) for p_id, para in enumerate(nested)
+                for l_id, line in enumerate(para)]
+        groups = {}
+        for k, (_, _, line) in enumerate(flat):
+            groups.setdefault(round_up(line.shape[2], LINE_WIDTH_BUCKET),
+                              []).append(k)
+        device = self.model._compute_device()
+        for wb, idxs in groups.items():
+            n = _pow2_batch(len(idxs))
+            batch = torch.zeros((n, CHAR_INPUT_HEIGHT, wb,
+                                 flat[idxs[0]][2].shape[3]), device=device)
+            ws = torch.full((n,), 4, dtype=torch.int64)
+            for bi, k in enumerate(idxs):
+                line = torch.as_tensor(flat[k][2]).to(device=device,
+                                                      dtype=torch.float32)
+                batch[bi, :, :line.shape[2], :] = line[0]
+                ws[bi] = line.shape[2]
+            with torch.no_grad():
+                out = char_forward_masked(self.model.params, batch,
+                                          ws.to(device))
+            for bi, k in enumerate(idxs):
+                p_id, l_id, line = flat[k]
+                preds[p_id][l_id] = out[bi, :line.shape[2], :]
+        context['prediction'][self.name] = preds
+        context[self.selector.pred_label] = preds
+
+
 class Modes(Enum):
     TRAIN_MONOCHROME = 0
     TRAIN_PARAGRAPH = 1
@@ -479,13 +563,6 @@ class Modes(Enum):
     TRAIN_CHAR = 3
     TRAIN_ALL = 4
     PREDICT = 5
-
-
-def _predict_not_ported():
-    return NotImplementedError(
-        'the per-page PREDICT mode of make_model_system is not ported yet '
-        '(ROADMAP, Queue A, item 8); OCRPipeline and models.predict read '
-        'pages on the port')
 
 
 def make_context_maker(mode, device=None):
@@ -549,7 +626,9 @@ def make_context_maker(mode, device=None):
             }
 
     else:
-        raise _predict_not_ported()
+        def make_context(dataset_get_func, args=(), kwargs={}):
+            layers = dataset_get_func(*args, layer_tags=['image'], **kwargs)
+            return {'monochrome_X': to_device(layers['image'], device)}
 
     return make_context
 
@@ -574,10 +653,10 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
     models, component_names).  `generator` draws the models' initial
     parameters (nn/rng.py; seed 0 when None) before `weights`, a
     model_weights.json dict, replaces them.  Line and Char train through
-    the masked steps (the JAX package's `bucketed=True`, its default);
-    Modes.PREDICT raises NotImplementedError."""
-    if mode is Modes.PREDICT:
-        raise _predict_not_ported()
+    the masked steps and predict through the bucketed batches (the JAX
+    package's `bucketed=True`, its default).  Modes.PREDICT runs the whole
+    cascade on one page, `model_system.predict(context)` leaving its
+    [paragraph][line] text in context['text']."""
     device = resolve_device(device)
     generator = make_generator() if generator is None else generator
     build = dict(generator=generator, device=device)
@@ -635,6 +714,8 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
             if mode is Modes.TRAIN_LINE:
                 old_labels.pop()
                 new_labels.pop()
+            if mode is Modes.PREDICT:
+                old_labels, new_labels = old_labels[:1], new_labels[:1]
             mask, *arrays = get_from_context(context, [
                 'paragraph_pred_cpu', *old_labels])
             with CropAndRotateParagraphs(min(4, os.cpu_count())) as crop:
@@ -647,8 +728,11 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
     def make_line_component():
         selector = LineSelector('cropped_monochrome', 'cropped_line',
                                 'line_pred')
-        return FastLineTrainComponent(
-            'Line', make_line(input_shape, optimizer, **build), selector)
+        model = make_line(input_shape, optimizer, **build)
+        if mode is Modes.PREDICT:
+            return FastLineComponent('Line', model, selector,
+                                     delist_result=True)
+        return FastLineTrainComponent('Line', model, selector)
 
     if mode is Modes.TRAIN_LINE:
         return get_result({
@@ -663,15 +747,17 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
     def make_line_crop_component():
         @track_function('LineCrop', 'forward', progress_tracker)
         def line_crop_func(context):
+            old_labels = ['cropped_monochrome_cpu', 'cropped_char_cpu']
+            new_labels = ['cropped_2_monochrome_cpu', 'cropped_2_char_cpu']
+            if mode is Modes.PREDICT:
+                old_labels, new_labels = old_labels[:1], new_labels[:1]
             masks, *arrays = get_from_context(context, [
-                'line_pred_cpu', 'cropped_monochrome_cpu',
-                'cropped_char_cpu'])
+                'line_pred_cpu', *old_labels])
             with CropRotateAndZoomLines(min(8, os.cpu_count()),
                                         CHAR_INPUT_HEIGHT,
                                         CHAR_FIXED_WIDTH) as crop:
                 results = crop(masks, arrays)
-            put_to_context(context, ['cropped_2_monochrome_cpu',
-                                     'cropped_2_char_cpu'], results)
+            put_to_context(context, new_labels, results)
         return RawFunctionComponent(line_crop_func)
 
     def make_char_label_component():
@@ -686,8 +772,11 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
     def make_char_component():
         selector = CharSelector('cropped_2_monochrome', 'char_labels',
                                 'char_pred')
-        return FastCharTrainComponent(
-            'Char', make_char(input_shape, optimizer, **build), selector)
+        model = make_char(input_shape, optimizer, **build)
+        if mode is Modes.PREDICT:
+            return FastCharComponent('Char', model, selector,
+                                     delist_result=True)
+        return FastCharTrainComponent('Char', model, selector)
 
     if mode is Modes.TRAIN_CHAR:
         return get_result({
@@ -704,8 +793,10 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
             'Char': make_char_component(),
         })
 
-    # TRAIN_ALL
-    return get_result({
+    # TRAIN_ALL and PREDICT: the whole cascade; PREDICT moves no labels
+    # and decodes the Char predictions to text
+    predict = mode is Modes.PREDICT
+    components = {
         'Monochrome': make_monochrome_component(),
         'rename_monochrome': make_rename_in_context_component([
             ('monochrome_pred', 'paragraph_X'),
@@ -718,17 +809,30 @@ def make_model_system(input_shape, optimizer=None, progress_tracker=None,
         'ParagraphCrop': make_paragraph_crop_component(),
         'move_to_gpu_paragraph_crop': make_move_to_device_component([
             ('cropped_monochrome_cpu', 'cropped_monochrome'),
-            ('cropped_line_cpu', 'cropped_line'),
+            *([] if predict else [('cropped_line_cpu', 'cropped_line')]),
         ], device),
         'Line': make_line_component(),
         'move_from_gpu_line': make_move_from_device_component([
             ('line_pred', 'line_pred_cpu'),
         ]),
         'LineCrop': make_line_crop_component(),
-        'CharLabel': make_char_label_component(),
         'move_to_gpu_char_label': make_move_to_device_component([
             ('cropped_2_monochrome_cpu', 'cropped_2_monochrome'),
-            ('char_labels_cpu', 'char_labels'),
+            *([] if predict else [('char_labels_cpu', 'char_labels')]),
         ], device),
         'Char': make_char_component(),
-    })
+    }
+    if not predict:
+        components['CharLabel'] = make_char_label_component()
+        return get_result(components)
+
+    @track_function('PredToText', 'forward', progress_tracker)
+    def pred_to_text_func(context):
+        with PredToText(min(8, os.cpu_count())) as pred_to_text:
+            context['text'] = pred_to_text(context['char_pred_cpu'])
+
+    components['move_from_gpu_char'] = make_move_from_device_component([
+        ('char_pred', 'char_pred_cpu'),
+    ])
+    components['PredToText'] = RawFunctionComponent(pred_to_text_func)
+    return get_result(components)

@@ -1,23 +1,32 @@
-"""OCR one page image with the host cascade and write `result.txt`
-(the port's counterpart of univer_ocr_tpu/models/predict.py).
+"""OCR one page image and write `result.txt` (the port's counterpart of
+univer_ocr_tpu/models/predict.py).
 
     python -m univer_ocr_tpu_torch.models.predict PAGE [--out DIR] [--cpu]
 
 PAGE is an image file (read with Pillow) or a `.npy` array of gray values
 (uint8, or float in [0, 1]; shape (H, W) or (1, H, W, 1)), which needs no
 Pillow.  The page is center-padded to a multiple of 16 and run through
-`OCRPipeline` on the committed checkpoint.  `result.txt` holds the
-[paragraph][line] text list; an image input is also saved as `X.png`.
-The default output directory is `generated_files/prediction_result`.
+`OCRPipeline` (the host cascade, the CUDA kernels on the card) on the
+committed checkpoint.  `result.txt` holds the [paragraph][line] text
+list; an image input is also saved as `X.png`.  The default output
+directory is `generated_files/prediction_result`.
+
+`predict_page` is the JAX package's own predict path: the PREDICT-mode
+model system (`load_model_system`: Monochrome, Paragraph, paragraph
+crops, Line, line crops, Char and PredToText, in full float32).
 """
 
 import argparse
+import json
 from pathlib import Path
 
 import numpy as np
 
-from ..weights import load_checkpoint
+from ..device import resolve_device
+from ..ops.precision import backend_flags
+from ..weights import DEFAULT_CHECKPOINT, load_checkpoint
 from .bucketing import make_divisible_by
+from .model import Modes, make_model_system, to_device
 from .pipeline import OCRPipeline
 
 DEFAULT_OUT = Path('generated_files') / 'prediction_result'
@@ -38,6 +47,33 @@ def load_page(path):
     if arr.dtype == np.uint8:
         arr = arr / 255.0
     return np.asarray(arr, np.float64)[None, :, :, None], image
+
+
+def load_model_system(input_shape, path=DEFAULT_CHECKPOINT, device=None):
+    """The PREDICT-mode model system for pages of `input_shape`, with the
+    weights of the checkpoint at `path` (random ones when there is no
+    file, as the JAX package's)."""
+    try:
+        with open(path) as fp:
+            weights = json.load(fp)
+    except OSError:
+        print(f'No checkpoint found at {path}')
+        weights = {}
+    model_system, _, _ = make_model_system(input_shape, weights=weights,
+                                           mode=Modes.PREDICT, device=device)
+    return model_system
+
+
+def predict_page(page, device=None, path=DEFAULT_CHECKPOINT):
+    """One (1, H, W, 1) page (H, W multiples of 16) through the model
+    system: `model_system.predict(context)`, in full float32; returns
+    context['text'], the [paragraph][line] text list."""
+    device = resolve_device(device)
+    model_system = load_model_system(page.shape, path, device)
+    context = {'monochrome_X': to_device(page, device)}
+    with backend_flags('highest'):
+        model_system.predict(context)
+    return context['text']
 
 
 def predict(path, out_dir=DEFAULT_OUT, device=None, collapse_runs=False):

@@ -5,7 +5,8 @@ merge-saved into a checkpoint.
 
     python -m univer_ocr_tpu_torch.models.train [--cpu] [--data NPZ|DIR]
         [--weights-in JSON] [--weights-out JSON] [--epochs N]
-        [--train-size N] [--val-size N] [--seed N]
+        [--train-size N] [--val-size N] [--seed N] [--batched]
+        [--batch N] [--predicted[=mix]] [--eval-gate]
 
 `--data` is a training-pages .npz (default: the committed fixture,
 univer_ocr_tpu_torch/fixtures/train_pages.npz: 2 pages to train, 1 to
@@ -15,7 +16,13 @@ generated_files/data; reading it needs Pillow).  Training starts from
 `--weights-in` (default: the JAX package's committed checkpoint, which is
 only read) and writes `--weights-out` (default
 generated_files/model_weights_torch.json).  `--epochs` replaces every
-stage's epoch count.
+stage's epoch count.  `--batched` trains the four single-model stages
+in weighted batches of `--batch` samples (models/dp_train.py),
+`--predicted` builds their Line and Char samples from the serving crop
+distribution (`=mix` adds the ground-truth crops), and `--eval-gate`
+writes a stage's weights only when the end-to-end text of the eval
+corpus does not regress (models/evaluation.py), as the JAX package's
+scripts/train_tpu.py flags do.
 """
 
 import argparse
@@ -29,9 +36,11 @@ from ..nn.checkpoint import write_weights
 from ..nn.optimizers import Adam
 from ..nn.progress_tracker import ProgressTracker
 from ..ops.precision import backend_flags
-from ..weights import DEFAULT_CHECKPOINT
+from ..weights import DEFAULT_CHECKPOINT, refuse_committed
 from .constants import TRAIN_FIXTURE, TRAINED_WEIGHTS_PATH
 from .datasets import Dataset, RandomSelectDataset, load_page_arrays
+from .dp_train import _STAGE_MODEL, train_model_batched
+from .evaluation import make_eval_gate
 from .model import Modes, make_context_maker, make_model_system
 from .trainer import Trainer
 
@@ -101,7 +110,8 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
                 train_size=50, val_size=5, seed=0,
                 weights_in=DEFAULT_CHECKPOINT,
                 weights_out=TRAINED_WEIGHTS_PATH, device=None,
-                show_progress_bar=False, reporter=None):
+                show_progress_bar=False, reporter=None, batched=False,
+                mesh=None, batch=16, predicted=False, eval_gate=False):
     """Run the curriculum (CURRICULUM unless given: (mode, lr, lr_step,
     epochs) per stage) on `device` (None: the card).
 
@@ -115,15 +125,23 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     The whole call runs in full float32 (`backend_flags('highest')`: TF32
     off for convolutions and matrix products), as JAX trains.
 
+    `batched=True` trains the four single-model stages through the
+    batched trainer (dp_train.train_model_batched: samples built once,
+    weighted batches of `batch`, per-sample losses), which writes
+    `weights_out` itself; TRAIN_ALL stays on the per-sample Trainer.
+    `predicted` (True or 'mix') builds the batched Line and Char samples
+    from the serving crop distribution.  `eval_gate=True` holds every
+    write of `weights_out` to the end-to-end score of the eval corpus
+    (evaluation.make_eval_gate, its incumbent read from `weights_out`).
+    `mesh` is not ported (NotImplementedError).
+
     Returns one dict per stage: mode, best validation losses and epochs,
-    rollbacks, and the sample orders the trainer drew.
+    rollbacks, and the sample orders the trainer drew; a batched stage's:
+    mode, best validation loss, sample counts and build seconds.
     """
     device = resolve_device(device)
     weights_out = Path(weights_out)
-    if weights_out.resolve() == Path(DEFAULT_CHECKPOINT).resolve():
-        raise ValueError('train_model does not write the committed '
-                         f'checkpoint {DEFAULT_CHECKPOINT}; pass another '
-                         'weights_out')
+    refuse_committed(weights_out)
     reporter = TrainReporter() if reporter is None else reporter
     rng = random.Random(seed)
     tracker = ProgressTracker(reporter.status)
@@ -133,10 +151,26 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     checkpoint = _read_weights(weights_in)
     write_weights(checkpoint, weights_out)
 
+    gate = None
+    if eval_gate:
+        gate = make_eval_gate(weights_out, log=reporter.message,
+                              device=device)
+    modes = CURRICULUM if curriculum is None else curriculum
     results = []
     with backend_flags('highest'):
-        for mode, lr, lr_step, epochs in (CURRICULUM if curriculum is None
-                                          else curriculum):
+        if batched:
+            fast = [stage for stage in modes if stage[0] in _STAGE_MODEL]
+            if fast:
+                results += train_model_batched(
+                    fast, train_dataset, validation_dataset, batch=batch,
+                    mesh=mesh, train_size=train_size, val_size=val_size,
+                    seed=seed, log=reporter.message,
+                    checkpoint_path=weights_out, predicted=predicted,
+                    eval_gate=gate, device=device, rng=rng)
+                checkpoint = _read_weights(weights_out)
+            modes = [stage for stage in modes
+                     if stage[0] not in _STAGE_MODEL]
+        for mode, lr, lr_step, epochs in modes:
             print(f'Training mode: {mode.name}')
             train_pages = RandomSelectDataset(train_size, train_dataset, rng)
             val_pages = RandomSelectDataset(val_size, validation_dataset,
@@ -164,7 +198,7 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
                 train_pages, val_pages, progress_tracker=tracker,
                 show_progress_bar=show_progress_bar, optimizer=optimizer,
                 learning_rate_step=lr_step, save_weights_func=save_improved,
-                rng=rng)
+                rng=rng, eval_gate=gate)
             best_loss, best_loss_epoch = trainer.train(num_epochs=epochs)
             reporter.message(f'Complete. Best loss was {best_loss} '
                              f'on epoch #{best_loss_epoch}')
@@ -190,6 +224,17 @@ def main(argv=None):
                         help='pages per stage (default: all)')
     parser.add_argument('--val-size', type=int, default=None)
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--batched', action='store_true',
+                        help='train the single-model stages in batches')
+    parser.add_argument('--batch', type=int, default=16,
+                        help='samples per batch of --batched')
+    parser.add_argument('--predicted', nargs='?', const=True, default=False,
+                        choices=[True, 'mix'],
+                        help='batched Line/Char samples from predicted '
+                             'crops (=mix: and ground-truth ones)')
+    parser.add_argument('--eval-gate', action='store_true',
+                        help='write weights only when the end-to-end eval '
+                             'score does not regress')
     args = parser.parse_args(argv)
 
     data = Path(args.data)
@@ -206,7 +251,9 @@ def main(argv=None):
         train_size=args.train_size or len(train),
         val_size=args.val_size or len(validation), seed=args.seed,
         weights_in=args.weights_in, weights_out=args.weights_out,
-        device='cpu' if args.cpu else None)
+        device='cpu' if args.cpu else None, batched=args.batched,
+        batch=args.batch, predicted=args.predicted,
+        eval_gate=args.eval_gate)
     for stage in results:
         print(stage['mode'], {name: list(map(float, v))
                               for name, v in stage['best_losses'].items()})

@@ -118,7 +118,9 @@ class Trainer:
     """Epoch loop with shuffling from `rng` (a `random.Random`; seed 0 when
     None), per-sample train/validate, lr decay, NaN rollback (< 10
     attempts -> last weights, else best weights) and a save-best-weights
-    callback."""
+    callback, which an `eval_gate` (evaluation.make_eval_gate) may
+    withhold: the improved models are offered to it first, and saved only
+    on its approval."""
 
     MAX_RELOAD_ATTEMPTS = 10
 
@@ -126,7 +128,7 @@ class Trainer:
                  models, train_dataset, validation_dataset,
                  progress_tracker, show_progress_bar=False,
                  optimizer=None, learning_rate_step=0.995,
-                 save_weights_func=None, rng=None):
+                 save_weights_func=None, rng=None, eval_gate=None):
         self.model_system = model_system
         self.make_context_func = make_context_func
         self.models = models
@@ -138,6 +140,7 @@ class Trainer:
         self.learning_rate_step = learning_rate_step
         self.save_weights_func = save_weights_func
         self.rng = random.Random(0) if rng is None else rng
+        self.eval_gate = eval_gate
         #: (epoch, phase, sample order) of every sweep the rng shuffled
         self.orders = []
         self.rollbacks = 0
@@ -293,8 +296,16 @@ class Trainer:
 
             improved = losses.get_better_weights(epoch)
             if improved and self.save_weights_func:
-                print('  Saving weights for ' + ', '.join(improved))
-                self.save_weights_func(improved)
+                approved = True
+                if self.eval_gate is not None:
+                    approved, _, _ = self.eval_gate(
+                        {name: self.models[name] for name in improved})
+                if approved:
+                    print('  Saving weights for ' + ', '.join(improved))
+                    self.save_weights_func(improved)
+                else:
+                    print('  Eval gate rejected ' + ', '.join(improved)
+                          + '; checkpoint kept')
 
             print(f'Time required: {dt.now() - started}\n\n')
             last = self._snapshot()

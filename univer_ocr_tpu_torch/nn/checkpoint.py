@@ -67,6 +67,15 @@ def save_weights(models, path):
     write_weights(weights, path)
 
 
+def read_weights(path):
+    """The checkpoint dict at `path`, or {} when it cannot be read."""
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except OSError:
+        return {}
+
+
 def load_weights(models, path):
     """Set every model's weights from the checkpoint at `path`; False when
     there is no file."""

@@ -18,6 +18,15 @@ def segmentation_dice_2d(prediction, ground_truth):
     return torch.sum(1 - 2 * num / den)
 
 
+def segmentation_dice_2d_per_sample(prediction, ground_truth):
+    """segmentation_dice_2d of each sample alone: (B,) losses, each
+    summed over its channels (the JAX batched trainer's vmap of it)."""
+    num = torch.sum(prediction * ground_truth, dim=(1, 2)) + EPS
+    den = (torch.sum(prediction, dim=(1, 2))
+           + torch.sum(ground_truth, dim=(1, 2)) + 2 * EPS)
+    return torch.sum(1 - 2 * num / den, dim=1)
+
+
 def segmentation_jaccard_2d(prediction, ground_truth):
     """Soft Jaccard (IoU) with the same eps placement."""
     num = torch.sum(prediction * ground_truth, dim=(1, 2)) + EPS

@@ -88,3 +88,12 @@ def load_checkpoint(path=DEFAULT_CHECKPOINT, device=None):
     with open(path) as fp:
         weights = json.load(fp)
     return params_from_numpy(weights, device)
+
+
+def refuse_committed(path):
+    """Raise ValueError when `path` is the committed checkpoint, which the
+    port's trainers only read."""
+    if Path(path).resolve() == DEFAULT_CHECKPOINT.resolve():
+        raise ValueError('the trainers do not write the committed '
+                         f'checkpoint {DEFAULT_CHECKPOINT}; pass another '
+                         'weights_out')
