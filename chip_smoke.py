@@ -56,6 +56,24 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            more than the chain takes: it must fall back to the
            host-planned fused dispatch, with the text of the
            device-planned chunk path and both kernels launched
+  serve_path
+           the web app on the card (univer_ocr_tpu_torch.web: create_app(),
+           start_background(port=0)): POST /ocr of the 4 fixture pages
+           cropped by one pixel on every side (bucketed to 496x736) and
+           of the first 2 whole (bucketed to 752x992) as .npy bodies,
+           with the launch counts from 0 just before them (both kernels
+           must launch); each answer equal to its pipeline's ocr_pages on
+           bucket_page of the body and within BF16_SIMILARITY of the JAX
+           package's /ocr answer to the same body (`ocr_texts`); a
+           garbage body refused with a 400; 8 sequential requests at
+           496x736 (p50 and spread) and 4 concurrent ones (requests/s),
+           their texts the sequential ones; the first request per shape
+           in ms; then a /train-ws micro run (train_model at 1 epoch of
+           TRAIN_MONOCHROME on the training fixture, writing
+           build/serve/, reporting through init_emitter) whose browser
+           must receive message, info and every DASHBOARD_TYPES type;
+           and `python -m univer_ocr_tpu_torch predict PAGE.npy` in a
+           subprocess, its printed text equal to predict() in process
   train_path
            training (univer_ocr_tpu_torch.models.train) from the committed
            checkpoint on the training fixture's 3 pages
@@ -134,7 +152,8 @@ kernel's `launches` in the last JSON lines is its count on that path's
 run, and the Char head's times there are means per launch over that
 run's width mix (`WIDTH_LAUNCHES`), with each width's own numbers beside
 them.  `launches_by_path` gives each path's count (each path's run
-starts with the counts at 0), and the Char head's `host_path`,
+starts with the counts at 0; `serve_path` counts the web app's
+requests), and the Char head's `host_path`,
 `device_path` and `tables_path` entries its times over those paths'
 mixes.  Plain versions run with TF32 off (full float32).
 
@@ -233,6 +252,13 @@ BATCHED_LATER_RTOL = {'Monochrome': 1e-3, 'Paragraph': 1e-3, 'Line': 1e-3,
 GATE_SCORE_TOL = 0.01
 #: steady-state repetitions of a batched stage's first batch
 STEADY_REPS = 5
+#: the dashboard's progress_tracker types a training run must deliver
+#: (tests/test_web_dashboard.py)
+DASHBOARD_TYPES = {'reset', 'generating_data', 'training', 'validating',
+                   'epoch', 'train_iteration', 'val_iteration',
+                   'forward_backward'}
+#: sequential /ocr requests timed at the serving page
+SERVE_REPS = 8
 
 
 @contextlib.contextmanager
@@ -1310,6 +1336,240 @@ def batched_train_path(weights, params, mono_prep, char_prep, mono_w,
     return launches, errors
 
 
+def post_ocr(port, body):
+    """(status, JSON answer, ms) of one POST /ocr."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f'http://127.0.0.1:{port}/ocr', data=body,
+                                 method='POST')
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, data = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, data = e.code, json.loads(e.read())
+    return status, data, 1e3 * (time.perf_counter() - t0)
+
+
+def npy_bytes(arr):
+    import io
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def serve_path(card, mono_prep, mono_w, rng):
+    """Phase serve_path: the web app on the card (create_app(),
+    start_background(port=0)) answering POST /ocr with .npy bodies: the 4
+    fixture pages cropped by one pixel on every side (494x734, bucketed
+    to 496x736) and the first 2 whole (bucketed to 752x992), with the
+    launch counts from 0 just before them.  `fused_monochrome` is held
+    to its plain version at every shape these requests gave it.  Each
+    answer must equal its pipeline's own ocr_pages on bucket_page of the
+    body and be within BF16_SIMILARITY of JAX's /ocr answer to the same
+    body (the fixture's `ocr_texts`); garbage gets a 400; 8 sequential
+    requests are timed with their pipeline's stage timers on; 4
+    concurrent requests give the sequential texts.  Then a /train-ws
+    micro run (train_model at 1 epoch of TRAIN_MONOCHROME on the
+    training fixture, reporting through init_emitter) whose browser must
+    see message, info and every DASHBOARD_TYPES type, and `python -m
+    univer_ocr_tpu_torch predict` on a .npy page, whose text must equal
+    predict() in this process.  Returns the requests' launches and the
+    kernel's largest error."""
+    import threading
+    from univer_ocr_tpu_torch.models import train as train_mod
+    from univer_ocr_tpu_torch.models.datasets import load_page_arrays
+    from univer_ocr_tpu_torch.models.model import Modes
+    from univer_ocr_tpu_torch.models.predict import predict
+    from univer_ocr_tpu_torch.ops import kernels
+    from univer_ocr_tpu_torch.ops.kernels import LAUNCHES, char_head
+    from univer_ocr_tpu_torch.ops.kernels.fused_monochrome import (
+        SHAPE_LAUNCHES)
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+    from univer_ocr_tpu_torch.utils.profiling import StageTimers
+    from univer_ocr_tpu_torch.web import app as app_mod
+    from univer_ocr_tpu_torch.web import create_app
+    from univer_ocr_tpu_torch.web.app import bucket_page
+    from univer_ocr_tpu_torch.web.ws_client import (FrameReader, WSClient,
+                                                    connect_train_ws)
+    from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
+
+    out_dir = ROOT / 'build' / 'serve'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # JAX's stored answers are the committed checkpoint's: the app is
+    # pointed away from any checkpoint a trainer left in generated_files/
+    app_mod.TRAINED_WEIGHTS_PATH = out_dir / 'no_trained_weights.json'
+    if app_mod.serving_weights_path() != DEFAULT_CHECKPOINT:
+        raise AssertionError('serve_path: the app would not serve the '
+                             'committed checkpoint')
+    with np.load(FIXTURE) as f:
+        pages = f['pages']
+        jax_answers = json.loads(str(f['ocr_texts']))
+    bodies = {'crop': [np.ascontiguousarray(p[1:-1, 1:-1]) for p in pages],
+              'whole': list(pages[:2])}
+    app = create_app()
+    if app.device.type != 'cuda':
+        raise AssertionError(f'serve_path: the app runs on {app.device}')
+    app.start_background(port=0)
+    try:
+        LAUNCHES.clear()
+        char_head.WIDTH_LAUNCHES.clear()
+        SHAPE_LAUNCHES.clear()
+        answers, first_ms = {}, {}
+        for key, arrs in bodies.items():
+            answers[key] = []
+            for arr in arrs:
+                status, data, ms = post_ocr(app.port, npy_bytes(arr))
+                if status != 200:
+                    raise AssertionError(f'serve_path: /ocr gave {status}: '
+                                         f'{data}')
+                answers[key].append(data['text'])
+                first_ms.setdefault(str(bucket_page(arr).shape[1:3]), ms)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        widths = dict(sorted(char_head.WIDTH_LAUNCHES.items()))
+        mono_shapes = dict(sorted(SHAPE_LAUNCHES.items()))
+        print(f'serve_path launches: {launches}; fused_char_head by width: '
+              f'{widths}; fused_monochrome by (B, H, W): '
+              f'{ {str(k): v for k, v in mono_shapes.items()} }', flush=True)
+        for name in ('fused_monochrome', 'fused_char_head'):
+            if launches.get(name, 0) < 1:
+                raise AssertionError(f'{name} did not launch on serve_path')
+        # the kernel at every shape the requests gave it (each bucket
+        # shape the app built a pipeline for)
+        mono_err = 0.0
+        with backend_flags('highest'):
+            for B, H, W in mono_shapes:
+                x = torch.tensor(rng.random((B, H, W, 1), dtype=np.float32),
+                                 device='cuda')
+                mono_err = max(mono_err, compare(
+                    f'fused_monochrome {(B, H, W, 1)}',
+                    kernels.fused_monochrome(x, mono_prep),
+                    kernels.fused_monochrome_reference(x, *mono_w),
+                    MONO_TOL))
+        shapes = sorted(app.state['ocr_pipelines'])
+        print(f'serve_path pipelines: {shapes}, on '
+              f'{[str(p.device) for p in app.state["ocr_pipelines"].values()]}',
+              flush=True)
+        if shapes != [(1, 496, 736, 1), (1, 752, 992, 1)] or any(
+                p.device.type != 'cuda'
+                for p in app.state['ocr_pipelines'].values()):
+            raise AssertionError('serve_path: not one card pipeline per shape')
+        for key, arrs in bodies.items():
+            for i, arr in enumerate(arrs):
+                X = bucket_page(arr)
+                with app.ocr_lock:
+                    direct = app.get_pipeline(X.shape).ocr_pages([X])[0]
+                got, want = answers[key][i], jax_answers[key][i]
+                ratio = difflib.SequenceMatcher(
+                    None, page_text(want), page_text(got),
+                    autojunk=False).ratio()
+                print(f'  {key} page {i} {X.shape[1:3]}: '
+                      f'{sum(len(p) for p in got)} lines, equal to ocr_pages '
+                      f'{got == direct}, similarity to JAX\'s /ocr answer '
+                      f'{ratio:.6f}, exact {got == want}', flush=True)
+                if got != direct:
+                    raise AssertionError(f'serve_path {key} {i}: the answer '
+                                         'differs from ocr_pages')
+                if ratio <= BF16_SIMILARITY:
+                    raise AssertionError(f'serve_path {key} {i}: similarity '
+                                         f'{ratio} <= {BF16_SIMILARITY}')
+        status, data, _ = post_ocr(app.port, b'not an image')
+        print(f'serve_path garbage body: {status} {data}', flush=True)
+        if status != 400 or not data.get('error'):
+            raise AssertionError('serve_path: garbage was not refused')
+
+        crops = [npy_bytes(arr) for arr in bodies['crop']]
+        served = app.state['ocr_pipelines'][(1, 496, 736, 1)]
+        with app.ocr_lock:
+            served.timers = StageTimers()
+        seq = [post_ocr(app.port, crops[i % 4]) for i in range(SERVE_REPS)]
+        with app.ocr_lock:
+            stages = {name: round(1e3 * total / SERVE_REPS, 3) for name, total
+                      in sorted(served.timers.totals.items())}
+            served.timers = None
+        ms = [r[2] for r in seq]
+        if any(r[0] != 200 or r[1]['text'] != answers['crop'][i % 4]
+               for i, r in enumerate(seq)):
+            raise AssertionError('serve_path: a repeated request changed')
+        results = [None] * 4
+
+        def run(i):
+            results[i] = post_ocr(app.port, crops[i])
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if [r[:2] for r in results] != [(200, {'text': answers['crop'][i]})
+                                        for i in range(4)]:
+            raise AssertionError('serve_path: concurrent requests differ '
+                                 'from sequential ones')
+        print(f'serve_path on {card}: first request per shape (building '
+              f'its pipeline) ms {json.dumps(first_ms)}', flush=True)
+        print(f'serve_path on {card}: {SERVE_REPS} sequential requests at '
+              f'496x736: p50 {float(np.median(ms)):.2f} ms, min '
+              f'{min(ms):.2f}, max {max(ms):.2f}, mean {float(np.mean(ms)):.2f}'
+              f'; stage timers, ms per request (summed over threads): '
+              f'{json.dumps(stages)}, {sum(stages.values()):.3f} in all',
+              flush=True)
+        print(f'serve_path on {card}: 4 concurrent requests in {wall:.3f} s, '
+              f'{4 / wall:.2f} requests/s, texts equal to sequential',
+              flush=True)
+
+        browser = WSClient('127.0.0.1', app.port, '/train-ws')
+        reader = FrameReader(browser.sock)
+        client = connect_train_ws(port=app.port)
+        train, validation = load_page_arrays()
+        train_mod.init_emitter(client)
+        t0 = time.perf_counter()
+        try:
+            train_mod.train_model(
+                train, validation,
+                curriculum=[(Modes.TRAIN_MONOCHROME, 1e-3, 0.995, 1)],
+                train_size=2, val_size=1,
+                weights_out=out_dir / 'weights.json')
+        finally:
+            train_mod.init_emitter(None)
+            client.close()
+        train_s = time.perf_counter() - t0
+        reader.wait(lambda events: DASHBOARD_TYPES <= {
+            e['data'].get('type') for e in events
+            if e.get('event') == 'progress_tracker'}, 10)
+        browser.close()
+        kinds = Counter(e.get('event') for e in reader.events)
+        types = Counter(e['data'].get('type') for e in reader.events
+                        if e.get('event') == 'progress_tracker')
+        print(f'serve_path /train-ws micro run: {train_s:.2f} s, events '
+              f'{dict(kinds)}, progress types {dict(types)}', flush=True)
+        if not ({'message', 'info'} <= set(kinds)
+                and DASHBOARD_TYPES <= set(types)):
+            raise AssertionError('serve_path: the dashboard missed events')
+    finally:
+        app.shutdown()
+
+    page = out_dir / 'page.npy'
+    np.save(page, pages[2])
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, '-m', 'univer_ocr_tpu_torch', 'predict', str(page),
+         '--out', str(out_dir / 'cli')],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f'serve_path: the CLI failed:\n{cli.stderr}')
+    want = predict(page, out_dir / 'inproc', device='cuda')
+    printed = cli.stdout.strip().splitlines()[-1]
+    print(f'serve_path CLI predict: {cli_s:.2f} s, equal to predict() '
+          f'{printed == str(want)}', flush=True)
+    if printed != str(want):
+        raise AssertionError('serve_path: the CLI text differs from '
+                             'predict()')
+    return launches, mono_err
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this run '
@@ -1560,6 +1820,12 @@ def main():
                 raise AssertionError('chain_path: the 48-blob page did not '
                                      'fall back to the chunk path\'s text')
             kernels_launched('chain_fallback')
+
+        with phase('serve_path'):
+            launches['serve_path'], serve_err = serve_path(
+                card, mono_prep, mono_w, rng)
+            errors['fused_monochrome'] = max(errors['fused_monochrome'],
+                                             serve_err)
 
         with phase('train_path'):
             launches['train_path'] = train_path(expected_fused,

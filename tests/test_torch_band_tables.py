@@ -10,19 +10,20 @@ Bars:
     below 2^24, so both are exact; every float table field is one float32
     division (or product chain) done in the same order;
   * two-pass crops in 'highest': 1e-6 absolute (values in [0, 1]),
-    against the JAX functions run op by op, where each operation rounds
-    once as in the port.  Each output is the same two products and their
-    sum, but the JAX package sums them inside a one-hot matrix product;
-    measured on the CPU: at most 1.2e-7 (one float32 ulp at 1.0).  Under
-    `jax.jit` XLA fuses the multiply-adds of the sample positions, and
-    the JAX package's own jitted crops differ from its op-by-op ones by
-    up to 5.8e-6 at these shapes; the pipeline tests bound what that
-    does to the text;
+    against the JAX functions under `jax.jit`, as the JAX pipeline runs
+    them: XLA's CPU backend contracts each product whose only use is a
+    sum into a fused multiply-add, and the port takes an FMA at the same
+    points of the sample positions (device_cascade._fma).  Each output is
+    the same two products and their sum, but the JAX package sums them
+    inside a one-hot matrix product; measured on the CPU: at most 1.2e-7
+    (one float32 ulp at 1.0).  (Run op by op, the JAX functions round
+    each product and differ from their jitted selves by up to 5.8e-6 at
+    these shapes.);
   * at 0 degrees the two-pass crop equals the gather sampler's bit for
     bit, in both packages;
-  * two-pass crops in 'bf16': equal to the JAX package's (op by op and
-    jitted alike, measured on the CPU): both round the page, the blend
-    and each pass's float32 sum to bfloat16 at the same points."""
+  * two-pass crops in 'bf16': equal to the JAX package's, jitted: both
+    round the page, the blend and each pass's float32 sum to bfloat16 at
+    the same points."""
 
 import functools
 from collections import Counter
@@ -464,14 +465,16 @@ ANGLES = [0.0, 3.5, -3.5, 30.0, 60.0, 88.0]
 
 @pytest.mark.parametrize('angle', ANGLES)
 def test_twopass_crops_match_jax(angle):
-    """Both variants in 'highest' at 1e-6 (both rot90 parities: 60 and 88
-    degrees fold); at 0 degrees bit-equal to the gather sampler."""
+    """Both variants in 'highest' at 1e-6 against JAX's jitted ones (both
+    rot90 parities: 60 and 88 degrees fold); at 0 degrees bit-equal to
+    the gather sampler."""
     mono, para = _pages(angle)
     args = _twopass_args(angle)
     hb, wb = 96, 128
     got = tdc.twopass_paragraph_crops_resident(
         *map(_t, [mono, para] + args), hb, wb).numpy()
-    exp = np.asarray(jdc.twopass_paragraph_crops_resident(
+    exp = np.asarray(jax.jit(jdc.twopass_paragraph_crops_resident,
+                             static_argnums=(17, 18))(
         *map(jnp.asarray, [mono, para] + args), hb, wb))
     assert np.abs(got - exp).max() <= 1e-6
     assert (got != 0).any()
@@ -480,7 +483,7 @@ def test_twopass_crops_match_jax(angle):
     blob[0, :40, :60] = np.random.RandomState(9).rand(40, 60) > 0.3
     got_b = tdc.twopass_paragraph_crops(
         *map(_t, [mono, blob] + args)).numpy()
-    exp_b = np.asarray(jdc.twopass_paragraph_crops(
+    exp_b = np.asarray(jax.jit(jdc.twopass_paragraph_crops)(
         *map(jnp.asarray, [mono, np.packbits(blob, axis=2)] + args)))
     assert np.abs(got_b - exp_b).max() <= 1e-6
     if angle == 0.0:
@@ -495,6 +498,8 @@ def test_twopass_crops_bf16_equal_jax(angle):
     args = _twopass_args(angle)
     got = tdc.twopass_paragraph_crops_resident(
         *map(_t, [mono, para] + args), 96, 128, precision='bf16').numpy()
-    exp = np.asarray(jdc.twopass_paragraph_crops_resident(
-        *map(jnp.asarray, [mono, para] + args), 96, 128, precision='bf16'))
+    exp = np.asarray(jax.jit(functools.partial(
+        jdc.twopass_paragraph_crops_resident, precision='bf16'),
+        static_argnums=(17, 18))(
+        *map(jnp.asarray, [mono, para] + args), 96, 128))
     _eq(got, exp)

@@ -12,12 +12,13 @@ The port moves masks as bytes where JAX bit-packs them: blobs go to JAX
 packed and to the port as bytes, and masks are compared unpacked.
 
 The tables mode (exact_bands=False, sampler 'twopass'): the two-pass
-crops at 1e-6 against JAX run op by op (tests/test_torch_band_tables.py
-says why), the tables payload equal byte for byte once the band masks
+crops at 1e-6 against JAX under `jax.jit`, as its pipeline runs them
+(tests/test_torch_band_tables.py says why), the tables payload equal byte for byte once the band masks
 are (they may differ only where the prediction is within 1e-5 of its
 threshold), and the host planners' plans and escalation decisions
 equal."""
 
+import functools
 import json
 
 import numpy as np
@@ -25,6 +26,7 @@ import pytest
 import torch
 from scipy import ndimage
 
+import jax
 import jax.numpy as jnp
 
 from univer_ocr_tpu.models import device_cascade as jdc
@@ -442,26 +444,29 @@ def test_paragraph_stages_tables_mode_match_jax(params, precision):
     para[1, :, :, 0] = blob
     cols = _i32(1) + args + [hv, wv]
     kwargs = dict(precision=precision, tables=True, sampler='twopass')
+
+    def jitted(fn, *static, **kw):
+        return jax.jit(functools.partial(fn, **kw), static_argnums=static)
     crop_fns = (
         (lambda: tdc.twopass_paragraph_crops(
             *_torch([pages, buf[None]] + cols[:-2]), precision=precision),
-         lambda: jdc.twopass_paragraph_crops(
-            *_jax([pages, np.packbits(buf, axis=1)[None]] + cols[:-2]),
-            precision=precision)),
+         lambda: jitted(jdc.twopass_paragraph_crops, precision=precision)(
+            *_jax([pages, np.packbits(buf, axis=1)[None]] + cols[:-2]))),
         (lambda: tdc.twopass_paragraph_crops_resident(
             *_torch([pages, para] + cols[:-2]), hb, wb, precision=precision),
-         lambda: jdc.twopass_paragraph_crops_resident(
-            *_jax([pages, para] + cols[:-2]), hb, wb, precision=precision)))
+         lambda: jitted(jdc.twopass_paragraph_crops_resident, 17, 18,
+                        precision=precision)(
+            *_jax([pages, para] + cols[:-2]), hb, wb)))
     stages = (
         (lambda: tdc.paragraph_stage(
             params_t, *_torch([pages, buf[None]] + cols), **kwargs),
-         lambda: jdc.paragraph_stage(
-            params_j, *_jax([pages, np.packbits(buf, axis=1)[None]] + cols),
-            **kwargs)),
+         lambda: jitted(jdc.paragraph_stage, **kwargs)(
+            params_j, *_jax([pages, np.packbits(buf, axis=1)[None]] + cols))),
         (lambda: tdc.paragraph_stage_rot_resident(
             params_t, *_torch([pages, para] + cols), hb, wb, **kwargs),
-         lambda: jdc.paragraph_stage_rot_resident(
-            params_j, *_jax([pages, para] + cols), hb, wb, **kwargs)))
+         lambda: jitted(jdc.paragraph_stage_rot_resident, 20, 21,
+                        **kwargs)(
+            params_j, *_jax([pages, para] + cols), hb, wb)))
     for (crop_t, crop_j), (stage_t, stage_j) in zip(crop_fns, stages):
         crops_t, crops_j = crop_t(), np.asarray(crop_j())
         assert np.abs(crops_t.numpy() - crops_j).max() <= 1e-6

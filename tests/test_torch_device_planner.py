@@ -11,9 +11,11 @@ Bars:
     (level blocks, rotated bars on both sides of 45 degrees, a comb and
     a spiral for the CCL, and a page of 56 blobs for the per-page
     fallback);
-  * float plan fields (cos, sin, off_y, off_x): within 1e-6 of JAX's.
-    Both compute them in float32 from the same integer geometry; the
-    cosines and sines come from each library's own cosf/sinf;
+  * float plan fields (cos, sin, off_y, off_x): equal to JAX's jitted
+    planners' too.  Both compute them in float32 from the same integer
+    geometry; the port reads the cosines and sines of the deskew grid
+    from a table of JAX's values (deskew_table.py, held to JAX here) and
+    takes a fused multiply-add where XLA's CPU backend contracts one;
   * against the port's host planner (_page_paragraph_plans, float64):
     integer fields equal, float fields within 1e-3, as
     tests/test_single_page_chain.py holds JAX's;
@@ -119,16 +121,26 @@ def _jax_fields(plan):
 
 
 def _assert_plans_equal(plan, plan_j, where=''):
-    """Integer fields exact, float fields within 1e-6, by name."""
+    """Every field equal, by name."""
     plan = plan.numpy()
     fields_j = _jax_fields(plan_j)
     for ci, f in enumerate(FIELDS):
-        if f in tdc.PARAGRAPH_FLT_FIELDS:
-            np.testing.assert_allclose(plan[..., ci], fields_j[f], rtol=0,
-                                       atol=1e-6, err_msg=f'{where} {f}')
-        else:
-            np.testing.assert_array_equal(plan[..., ci], fields_j[f],
-                                          err_msg=f'{where} {f}')
+        np.testing.assert_array_equal(plan[..., ci], fields_j[f],
+                                      err_msg=f'{where} {f}')
+
+
+def test_deskew_tables_equal_jax():
+    """The planners' cosines and sines of the deskew grid: JAX's float32
+    cos and sin of deg2rad(0, 1, ..., 180), as its jitted planners
+    compute them."""
+    from univer_ocr_tpu_torch.models.deskew_table import COS_DEG, SIN_DEG
+    deg = np.arange(0.0, 181.0, 1.0, dtype=np.float32)
+    cos_j, sin_j = jax.jit(lambda a: (jnp.cos(jnp.deg2rad(a)),
+                                      jnp.sin(jnp.deg2rad(a))))(deg)
+    np.testing.assert_array_equal(np.asarray(COS_DEG, np.float32),
+                                  np.asarray(cos_j))
+    np.testing.assert_array_equal(np.asarray(SIN_DEG, np.float32),
+                                  np.asarray(sin_j))
 
 
 # ---------------------------------------------------------------------------

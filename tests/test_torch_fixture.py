@@ -12,7 +12,11 @@ alone, through the single-page chain (`chain_texts`), with whether the
 chain left the page to its host-planned fallback (`chain_fallbacks`);
 and the serving default's chunk text of the first 2 pages in 'bf16'
 (`fused_bf16_texts`, the plain layers in bfloat16 as JAX runs them on the
-CPU).
+CPU); and what the JAX package's `POST /ocr` answers (`ocr_texts`: its
+bucket_page, then its 'bf16' host cascade at chunk 4 and 4 workers, on
+the CPU) for each page cropped by one pixel on every side (494x734,
+which buckets to 496x736; `crop`) and for the first 2 pages whole (which
+bucket to 752x992; `whole`).
 chip_smoke.py drives the port on the card with these pages, which the
 card machine cannot render (it has no Pillow and no fonts).
 
@@ -108,6 +112,43 @@ def test_fixture_holds_the_fused_bf16_text():
                                                   for page in fused_texts[:2]]
 
 
+def test_fixture_holds_the_ocr_text():
+    """The /ocr text of the 4 cropped pages and the 2 whole ones, each
+    with some lines."""
+    _, ocr_texts = load_fixture('ocr_texts')
+    assert sorted(ocr_texts) == ['crop', 'whole']
+    assert len(ocr_texts['crop']) == N_PAGES
+    assert len(ocr_texts['whole']) == 2
+    for texts in ocr_texts.values():
+        assert all(sum(len(para) for para in page) > 0 for page in texts)
+
+
+def ocr_bodies(pages):
+    """The pages /ocr is driven with: each cropped by one pixel on every
+    side, then the first 2 whole."""
+    return ([np.ascontiguousarray(p[1:-1, 1:-1]) for p in pages],
+            list(pages[:2]))
+
+
+def jax_ocr_texts(pages, weights):
+    """The JAX package's /ocr answers for ocr_bodies(pages): its
+    bucket_page and its serving pipeline per page shape."""
+    from PIL import Image
+    from univer_ocr_tpu.models.pipeline import OCRPipeline
+    from univer_ocr_tpu.web.app import bucket_page
+    pipelines, out = {}, {}
+    for key, bodies in zip(('crop', 'whole'), ocr_bodies(pages)):
+        out[key] = []
+        for body in bodies:
+            X = bucket_page(Image.fromarray(body))
+            if X.shape not in pipelines:
+                pipelines[X.shape] = OCRPipeline(
+                    X.shape, weights=weights, chunk=4, workers=4,
+                    precision='bf16')
+            out[key].append(pipelines[X.shape].ocr_pages([X])[0])
+    return out
+
+
 def test_port_reproduces_the_fixture_text_on_cpu():
     from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
     from univer_ocr_tpu_torch.weights import load_checkpoint
@@ -167,6 +208,7 @@ def generate():
                              collapse_runs=4)
     fused_bf16_texts = fused_bf16.ocr_pages(
         [p[None, :, :, None] for p in pages[:2]])
+    ocr_texts = jax_ocr_texts(pages, weights)
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
 
     def text(value):
@@ -177,7 +219,7 @@ def generate():
         device_texts=text(device_texts), tables_texts=text(tables_texts),
         fused_texts=text(fused_texts), chain_texts=text(chain_texts),
         chain_fallbacks=text(chain_fallbacks),
-        fused_bf16_texts=text(fused_bf16_texts))
+        fused_bf16_texts=text(fused_bf16_texts), ocr_texts=text(ocr_texts))
     print(f'{FIXTURE}: {FIXTURE.stat().st_size} bytes, '
           f'{sum(len(p) for p in texts)} paragraphs')
 

@@ -19,6 +19,14 @@ from .constants import (LAYER_NAMES, LAYER_NAMES_PLAIN, LAYER_TAGS,
                         VALIDATION_DATA_PATH, VALIDATION_DATASET_LENGTH)
 
 
+def encode_X(image):
+    """A PIL L image or an (H, W) uint8 array -> the (1, H, W, 1) float64
+    input in [0, 1]: the gray values over 255.0, as the JAX package
+    encodes a page."""
+    plane = np.asarray(image)
+    return plane.reshape((1,) + plane.shape + (1,)) / 255.0
+
+
 def get_layer_names(layer_tags=None):
     tags = LAYER_TAGS if layer_tags is None else layer_tags
     return [name for tag in LAYER_TAGS if tag in tags

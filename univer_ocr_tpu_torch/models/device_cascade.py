@@ -49,6 +49,7 @@ import torch
 from ..ops import precision as precision_policy
 from .band_tables import (_CCL_BIG, _shear_span, grid_ccl_labels,
                           pack_tables_payload, tables_state)
+from .deskew_table import COS_DEG, SIN_DEG
 from .fastpath import _mask_hw, line_forward_masked
 
 # ---------------------------------------------------------------------------
@@ -108,6 +109,24 @@ def zoom_ratio(in_len, out_len):
 # ---------------------------------------------------------------------------
 # Device gathers
 # ---------------------------------------------------------------------------
+
+
+def _fma(a, b, c):
+    """a * b + c with one rounding.  The JAX package's compiled programs
+    evaluate a product whose only use is a sum this way (XLA's CPU
+    backend contracts the pair into a fused multiply-add), so the
+    resampler's coordinates take it at the same places: a floor of a
+    coordinate moves with the rounding of its last ulp."""
+    return torch.addcmul(c, a, torch.as_tensor(b, dtype=a.dtype,
+                                               device=a.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _deskew_tables(device):
+    """(cos, sin) of the deskew grid's 181 degrees on `device`, the JAX
+    package's float32 values (deskew_table.py)."""
+    return (torch.tensor(COS_DEG, dtype=torch.float32, device=device),
+            torch.tensor(SIN_DEG, dtype=torch.float32, device=device))
 
 
 def _per_sample(v, n, dtype, device):
@@ -366,9 +385,9 @@ def _affine_pass(src, scale, line_off, pos_off, S):
     # per-line fractional blend: blended[x] = src[x - S + q], zero-extended
     blended = (shifted[:, :, :K + 2 * S] * (1 - f)[:, :, None]
                + shifted[:, :, 1:] * f[:, :, None])
-    pos0 = (scale[:, None] * torch.arange(K, dtype=torch.float32,
-                                          device=dev)[None, :]
-            + pos_off[:, None])                                   # (B, J)
+    pos0 = _fma(scale[:, None], torch.arange(K, dtype=torch.float32,
+                                             device=dev)[None, :],
+                pos_off[:, None])                                 # (B, J)
     x0 = torch.floor(pos0)
     w = (pos0 - x0).to(dt)
     xi = x0.to(torch.int64) + S
@@ -457,13 +476,14 @@ def _twopass_crops(pages, blob, page_idx, src_y0, src_x0, src_h, src_w,
     inv_c = 1.0 / c_r
     t = s_r * inv_c                                               # |t| <= 1
     h_mid = _affine_pass(
-        src, inv_c, -t, inv_c * gx0 + ox_r + t * oy_r - t * (HB // 2),
+        src, inv_c, -t,
+        _fma(-t, HB // 2, _fma(t, oy_r, _fma(inv_c, gx0, ox_r))),
         HB - HB // 2 + 1)
     # pass 2 (y): Y(r, g) = c (r + gy0) + s (g + gx0) + oy, along the rows
     # of the transposed intermediate
     out_t = _affine_pass(
         h_mid.transpose(1, 2), c_r, s_r,
-        c_r * gy0 + s_r * gx0 + oy_r + s_r * (WB // 2),
+        _fma(s_r, WB // 2, _fma(c_r, gy0, s_r * gx0) + oy_r),
         int(np.ceil(0.70711 * (WB - WB // 2))) + 1)
     crops = out_t.transpose(1, 2).to(torch.float32)
 
@@ -472,8 +492,8 @@ def _twopass_crops(pages, blob, page_idx, src_y0, src_x0, src_h, src_w,
     grid_y = iH.to(torch.float32) + gy0.reshape(B, 1, 1)
     grid_x = iW.to(torch.float32) + gx0.reshape(B, 1, 1)
     cos_c, sin_c = cos_v.reshape(B, 1, 1), sin_v.reshape(B, 1, 1)
-    in_y = cos_c * grid_y + sin_c * grid_x + oy.reshape(B, 1, 1)
-    in_x = -sin_c * grid_y + cos_c * grid_x + ox.reshape(B, 1, 1)
+    in_y = _fma(cos_c, grid_y, sin_c * grid_x) + oy.reshape(B, 1, 1)
+    in_x = _fma(-sin_c, grid_y, cos_c * grid_x) + ox.reshape(B, 1, 1)
     shf = sh.to(torch.float32)
     in_domain = ((in_y >= 0) & (in_y <= shf - 1)
                  & (in_x >= 0) & (in_x <= swf.reshape(B, 1, 1) - 1))
@@ -700,14 +720,12 @@ def _page_component_plans(lab, menu, k_max):
     ysl = (ih - y0[..., None]).to(f32)                       # (B, K, H)
     xlo = (xmin_r - x0[..., None]).to(f32)
     xhi = (xmax_r - x0[..., None]).to(f32)
-    ang = torch.deg2rad(torch.arange(0.0, 181.0, 1.0, dtype=f32,
-                                     device=dev))
-    tc, ts = torch.cos(ang), torch.sin(ang)
+    tc, ts = _deskew_tables(dev)
     big = 3.0e8
     vm = rows_any[..., None]
 
     def proj(x):
-        return ysl[..., None] * tc - x[..., None] * ts       # (B, K, H, A)
+        return _fma(ysl[..., None], tc, -(x[..., None] * ts))  # (B, K, H, A)
 
     plo, phi = proj(xlo), proj(xhi)
     pmax = torch.maximum(torch.where(vm, plo, -big).amax(dim=2),
@@ -715,17 +733,16 @@ def _page_component_plans(lab, menu, k_max):
     pmin = torch.minimum(torch.where(vm, plo, big).amin(dim=2),
                          torch.where(vm, phi, big).amin(dim=2))
     del plo, phi
-    angle = torch.argmin(pmax - pmin, dim=2).to(f32)         # first minimum
-    level = (angle < 1.0) | (angle > 179.0)
+    degree = torch.argmin(pmax - pmin, dim=2)                # first minimum
+    level = (degree < 1) | (degree > 179)
 
     # rotate_affine: the geometry of scipy's rotate(angle, reshape=True)
-    rad = torch.deg2rad(angle)
-    ca, sa = torch.cos(rad), torch.sin(rad)
+    ca, sa = tc[degree], ts[degree]
     zero = torch.zeros_like(hf)
     cyc = torch.stack([zero, zero, hf, hf], dim=2)
     cxc = torch.stack([zero, wf, zero, wf], dim=2)
-    py_c = ca[..., None] * cyc + sa[..., None] * cxc         # (B, K, 4)
-    px_c = -sa[..., None] * cyc + ca[..., None] * cxc
+    py_c = _fma(ca[..., None], cyc, sa[..., None] * cxc)     # (B, K, 4)
+    px_c = _fma(-sa[..., None], cyc, ca[..., None] * cxc)
     rh = torch.floor(py_c.amax(dim=2) - py_c.amin(dim=2) + 0.5).to(
         torch.int64)
     rw = torch.floor(px_c.amax(dim=2) - px_c.amin(dim=2) + 0.5).to(
@@ -747,8 +764,8 @@ def _page_component_plans(lab, menu, k_max):
         return pick(getattr(torch.where(rows_any, lo, fill), reduce)(dim=2),
                     getattr(torch.where(rows_any, hi, fill), reduce)(dim=2))
 
-    py_lo, py_hi = c3 * dy - s3 * dlo, c3 * dy - s3 * dhi
-    px_lo, px_hi = s3 * dy + c3 * dlo, s3 * dy + c3 * dhi
+    py_lo, py_hi = _fma(c3, dy, -(s3 * dlo)), _fma(c3, dy, -(s3 * dhi))
+    px_lo, px_hi = _fma(s3, dy, c3 * dlo), _fma(s3, dy, c3 * dhi)
     py_min = extreme(py_lo, py_hi, big, 'amin')
     py_max = extreme(py_lo, py_hi, -big, 'amax')
     px_min = extreme(px_lo, px_hi, big, 'amin')

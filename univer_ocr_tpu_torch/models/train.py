@@ -1,7 +1,8 @@
 """Curriculum training (univer_ocr_tpu/models/train.py): the five-stage
 curriculum MONOCHROME -> PARAGRAPH -> LINE -> CHAR -> ALL over
 `make_model_system` and `Trainer`, with the best weights of every stage
-merge-saved into a checkpoint.
+merge-saved into a checkpoint, and the run's telemetry to the console or,
+after `init_emitter`, to the training dashboard.
 
     python -m univer_ocr_tpu_torch.models.train [--cpu] [--data NPZ|DIR]
         [--weights-in JSON] [--weights-out JSON] [--epochs N]
@@ -55,21 +56,82 @@ CURRICULUM = [
 
 
 class TrainReporter:
-    """A training run's telemetry on the console: `message` and `info`
-    print; `status` (the dashboard's per-layer timing events) shows
-    nothing there, as the JAX package's reporter with no client."""
+    """A training run's telemetry.  With no sink it goes to the console
+    (`message` and `info` print; `status`, the dashboard's progress
+    events, shows nothing there).  Once a sink is connected (`connect`;
+    a WSClient of web/ws_client.py, which univer_ocr_tpu_torch/train.py
+    connects to the dashboard's /train-ws), the same payloads go out as
+    its `message` / `info` / `progress_tracker` events, the vocabulary
+    the dashboard's train.js reads."""
+
+    #: tracker events folded into one dashboard table-update type
+    _TIMING_EVENTS = frozenset(('forward', 'backward'))
+
+    def __init__(self, sink=None):
+        self._sink = sink
+
+    def connect(self, sink):
+        self._sink = sink
+
+    def _send(self, event, payload):
+        if self._sink is not None:
+            self._sink.emit(event, payload)
+            return True
+        return False
 
     def message(self, *parts, sep=' ', end='\n'):
-        print(sep.join(str(part) for part in parts) + end)
+        text = sep.join(str(part) for part in parts) + end
+        if not self._send('message', text):
+            print(text)
 
     def info(self, info):
+        if self._send('info', info):
+            return
         for info_type, info_data in info.items():
             print(f'{info_type}:')
             pprint(info_data, indent=4)
             print()
 
+    @staticmethod
+    def _fold_timings(summary):
+        """ProgressTracker summary -> {layer: {event: {counter, done,
+        time}}} rows for the dashboard's per-layer table."""
+        return {layer: {entry['name']: {'counter': entry['counter'],
+                                        'done': entry['done'],
+                                        'time': str(entry['time'])}
+                        for entry in events}
+                for layer, events in summary.items()}
+
     def status(self, status_type, status_data=None):
-        pass
+        if status_type in self._TIMING_EVENTS:
+            status_type = 'forward_backward'
+            status_data = self._fold_timings(status_data)
+        payload = {'type': status_type}
+        if status_data is not None:
+            payload['data'] = status_data
+        self._send('progress_tracker', payload)
+
+
+#: the reporter of runs given none; init_emitter connects its sink
+_reporter = TrainReporter()
+
+
+def init_emitter(new_emitter):
+    """Send the telemetry of later runs to `new_emitter` (an object with
+    `emit(event, data)`); None returns it to the console."""
+    _reporter.connect(new_emitter)
+
+
+def message(*parts, sep=' ', end='\n'):
+    _reporter.message(*parts, sep=sep, end=end)
+
+
+def emit_info(info):
+    _reporter.info(info)
+
+
+def emit_status(status_type, status_data=None):
+    _reporter.status(status_type, status_data)
 
 
 def _read_weights(path):
@@ -133,7 +195,9 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     from the serving crop distribution.  `eval_gate=True` holds every
     write of `weights_out` to the end-to-end score of the eval corpus
     (evaluation.make_eval_gate, its incumbent read from `weights_out`).
-    `mesh` is not ported (NotImplementedError).
+    `mesh` is not ported (NotImplementedError).  The run reports to
+    `reporter` (default: the module's TrainReporter, which init_emitter
+    connects to the dashboard).
 
     Returns one dict per stage: mode, best validation losses and epochs,
     rollbacks, and the sample orders the trainer drew; a batched stage's:
@@ -142,7 +206,7 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     device = resolve_device(device)
     weights_out = Path(weights_out)
     refuse_committed(weights_out)
-    reporter = TrainReporter() if reporter is None else reporter
+    reporter = _reporter if reporter is None else reporter
     rng = random.Random(seed)
     tracker = ProgressTracker(reporter.status)
     tracker.reset()
@@ -172,6 +236,8 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
                      if stage[0] not in _STAGE_MODEL]
         for mode, lr, lr_step, epochs in modes:
             print(f'Training mode: {mode.name}')
+            # the dashboard's step badge: the stage's data is being built
+            reporter.status('generating_data')
             train_pages = RandomSelectDataset(train_size, train_dataset, rng)
             val_pages = RandomSelectDataset(val_size, validation_dataset,
                                             rng)

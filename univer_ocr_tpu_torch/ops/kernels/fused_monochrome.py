@@ -19,6 +19,8 @@ A CPU tensor takes `fused_monochrome_reference`; a CUDA tensor launches
 the kernel or raises.
 """
 
+import collections
+
 import numpy as np
 import torch
 
@@ -27,6 +29,10 @@ from . import _build
 
 LEAKY_ALPHA = 0.01
 NAME = 'fused_monochrome'
+
+#: launches of the kernel by the (B, H, W) of its input, counted where
+#: `_build.LAUNCHES` counts them (the shapes a path gives the kernel)
+SHAPE_LAUNCHES = collections.Counter()
 
 
 def fused_monochrome_reference(x, w1, b1, w2, b2, precision='highest'):
@@ -95,4 +101,5 @@ def fused_monochrome(x, weights):
     _build.check(code, NAME)
     with _build.COUNT_LOCK:
         _build.LAUNCHES[NAME] += 1
+        SHAPE_LAUNCHES[(B, H, W)] += 1
     return out
