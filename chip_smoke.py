@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (univer_ocr_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase, on one card
+    python3 chip_smoke.py --mesh    # device, build and mesh_path only (the
+                                    # run for a machine of several cards)
 
 Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
 
@@ -116,6 +118,26 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            a random-weight Char model rejected with its checkpoint's
            bytes unchanged, the committed weights approved; and both
            kernels against their plain versions at this path's shapes
+  mesh_path
+           the mesh (univer_ocr_tpu_torch.parallel): every card when
+           torch.cuda.device_count() is 2 or more, else MESH_SHARDS
+           logical 'data' shards on the one card (printed, with the
+           count).  The host cascade and the serving default (the fused
+           tail, host-planned under a mesh) over it on the chunk of 8
+           pages, with the launch counts from 0 just before each: every
+           page's text equal to the unsharded pipeline's in this call
+           and held against the JAX text as in the earlier phases; both
+           kernels launched on every card of the mesh at per-shard
+           shapes (the Monochrome block at CHUNK / shards pages, the
+           Char head at DEVICE_BATCH / shards lines on the host cascade
+           and at the 64-line pool of each shard's fused tail), each
+           shape then held to its plain version on each card; the DP
+           (Monochrome), TP (Char on a 4 x 2 mesh) and batched mesh steps
+           (Line, Char) against the unsharded steps in 'highest' (losses
+           and the whole summed gradient, 2-norm, within MESH_STEP_RTOL;
+           mesh_steps), with ms per step; pages/s of
+           both sharded pipelines beside the unsharded ones, and the
+           sharded fused chunk's peak device memory
   times    CUDA-event times of each kernel and its plain version at the
            paths' shapes (the Char head at every width each path
            launched) beside their bounds; the JAX device cascade's Char
@@ -153,7 +175,8 @@ run, and the Char head's times there are means per launch over that
 run's width mix (`WIDTH_LAUNCHES`), with each width's own numbers beside
 them.  `launches_by_path` gives each path's count (each path's run
 starts with the counts at 0; `serve_path` counts the web app's
-requests), and the Char head's `host_path`,
+requests, `mesh_host` and `mesh_fused` the sharded pipelines' runs),
+and the Char head's `host_path`,
 `device_path` and `tables_path` entries its times over those paths'
 mixes.  Plain versions run with TF32 off (full float32).
 
@@ -259,6 +282,14 @@ DASHBOARD_TYPES = {'reset', 'generating_data', 'training', 'validating',
                    'forward_backward'}
 #: sequential /ocr requests timed at the serving page
 SERVE_REPS = 8
+#: logical 'data' shards of mesh_path's mesh on a machine with one card
+MESH_SHARDS = 4
+#: a mesh training step's losses and gradients against the unsharded
+#: step's ('highest'; mesh_steps), read from an SGD step at this lr: a
+#: power of two far above the weights, so that the update scales the
+#: gradient exactly and rounds at its own ulp, not the weight's
+MESH_STEP_RTOL = 1e-5
+SGD_LR = 2.0 ** 20
 
 
 @contextlib.contextmanager
@@ -1570,7 +1601,344 @@ def serve_path(card, mono_prep, mono_w, rng):
     return launches, mono_err
 
 
+def mesh_devices():
+    """The mesh of phase mesh_path: every card when there are 2 or more
+    (as many as divide DEVICE_BATCH), else MESH_SHARDS logical shards on
+    the one card (the counterpart of JAX's virtual host devices)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        while 16 % n:
+            n -= 1
+        return [torch.device('cuda', i) for i in range(n)], f'{n} cards'
+    return ([torch.device('cuda', 0)] * MESH_SHARDS,
+            f'{MESH_SHARDS} logical shards on one card')
+
+
+def timed_step_ms(fn, reps=5):
+    """Median ms of fn() (host clock ending in a synchronize), after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def mesh_steps(mesh, devices, weights, pages, rng):
+    """The DP (Monochrome on the chunk's pages), TP (Char on a 4 x 2
+    mesh) and batched mesh steps (Line, Char; 16 slots, 4 of them filler)
+    on the card against the port's unsharded steps, in 'highest'.
+
+    Each step runs once with plain SGD at SGD_LR (the parameters then move
+    by SGD_LR times minus the step's summed gradient), and the model's whole
+    gradient is held to the unsharded step's: the 2-norm of the
+    difference over the 2-norm of the unsharded gradient within
+    MESH_STEP_RTOL (the max-norm ratio printed beside it); the loss (the
+    per-sample losses of the batched steps) within MESH_STEP_RTOL.  Both
+    float32 gradients are also measured against the one-device step in
+    float64 (printed, not gated): the Monochrome weights' gradients sum
+    2.9 million pixels each, and on an H100 the unsharded and the mesh
+    step differ by 7.4e-6 of the largest (PERF.md §6).
+    Adam's first step is no measure of that: an element whose gradient
+    sums to near 0 moves by lr * 0.1 g / (sqrt(0.001) |g| + 1e-8), which
+    turns float32 sum-order noise into 1e-6-size differences (PERF.md
+    §6).  The steps are timed with the models' Adam.  Returns per
+    step: ms, the unsharded ms and the largest relative difference."""
+    from univer_ocr_tpu_torch.models import dp_train, model as tmodel
+    from univer_ocr_tpu_torch.nn.models import value_and_grad
+    from univer_ocr_tpu_torch.nn.optimizers import Adam, Momentum
+    from univer_ocr_tpu_torch.parallel import (make_dp_train_step,
+                                               make_mesh,
+                                               make_tp_char_train_step)
+    from univer_ocr_tpu_torch.parallel.data_parallel import ColumnShards
+
+    def one_device(m):
+        def step(params, state, lr, X, y):
+            _, (losses, _, _), grads = value_and_grad(
+                m.loss_fn, params, list(params), [X], [y])
+            with torch.no_grad():
+                new, state = m._optimizer().update(params, grads, state, lr)
+            return new, state, losses
+        return step
+
+    def dp(m):
+        step = make_dp_train_step(m, mesh)
+        return (lambda *args: step(*args)[:3]), one_device(m)
+
+    def tp(m):
+        step, place, place_opt = make_tp_char_train_step(m, tp_mesh)
+
+        def placed(params, state, lr, X, y):
+            new, state, losses, _ = step(place(params),
+                                         place_opt(params, state), lr, X, y)
+            return new, state, losses
+        return placed, one_device(m)
+
+    def batched(make):
+        def steps(m):
+            return make(m, mesh)[0], make(m, None)[0]
+        return steps
+
+    tp_mesh = make_mesh(devices=[devices[i % len(devices)] for i in range(8)],
+                        model_parallel=2)
+    X = torch.tensor(np.stack(pages)[:, 0], device='cuda').float() / 255.0
+    Xc = torch.tensor(rng.random((8, 32, 512, 1), dtype=np.float32),
+                      device='cuda')
+    yc = torch.eye(162, device='cuda')[
+        torch.tensor(rng.integers(0, 162, 8 * 512), device='cuda')]
+    weight = torch.tensor([1.0] * 12 + [0.0] * 4, device='cuda')
+    hv = torch.tensor(rng.integers(16, 65, 16) * 4, device='cuda')
+    wv = torch.tensor(rng.integers(16, 129, 16) * 4, device='cuda')
+    Xl = torch.tensor(rng.random((16, 256, 512, 1), dtype=np.float32),
+                      device='cuda')
+    yl = (torch.tensor(rng.random((16, 256, 512, 2), dtype=np.float32),
+                       device='cuda') > 0.7).float()
+    wc = torch.tensor(rng.integers(8, 257, 16) * 4, device='cuda')
+    cols = torch.arange(1024, device='cuda')[None, :, None]
+    yb = torch.nn.functional.one_hot(
+        torch.tensor(rng.integers(0, 162, (16, 1024)), device='cuda'),
+        162).float() * (cols < wc[:, None, None])
+    Xb = torch.tensor(rng.random((16, 32, 1024, 1), dtype=np.float32),
+                      device='cuda')
+    cases = (
+        # DP: the chunk's pages, the map's own threshold as the label
+        ('dp_monochrome', 'make_monochrome', PAGE_SHAPE, dp, (X, (X < 0.5)
+                                                              .float())),
+        ('tp_char', 'make_char', (1, 32, 512, 1), tp, (Xc, yc)),
+        ('batched_line', 'make_line', (1, 256, 512, 1),
+         batched(lambda m, mesh: dp_train.make_batched_seg_step(
+             m, 'Line', mesh)), (Xl, yl, hv, wv, weight)),
+        ('batched_char', 'make_char', (1, 32, 1024, 1),
+         batched(dp_train.make_batched_char_step), (Xb, yb, wc, weight)))
+    out = {}
+    for label, factory, shape, make, batch in cases:
+        def model(optimizer):
+            m = getattr(tmodel, factory)(shape, optimizer=optimizer,
+                                         device='cuda')
+            m.set_weights(weights)
+            return m
+
+        sgd = model(Momentum(lr=SGD_LR))
+        params = sgd.params
+        state = sgd._optimizer().init_state(params)
+        (mesh_new, _, mesh_loss), (one_new, _, one_loss) = (
+            step(params, state, SGD_LR, *batch) for step in make(sgd))
+        # the same one-device step in float64: the reference both float32
+        # gradients are measured against
+        ref = model(Momentum(lr=SGD_LR))
+        ref.params = {n: {k: v.double() for k, v in layer.items()}
+                      for n, layer in ref.params.items()}
+        ref_new = make(ref)[1](
+            ref.params, ref._optimizer().init_state(ref.params), SGD_LR,
+            *(t.double() if t.is_floating_point() else t for t in batch))[0]
+        mesh_loss = torch.stack([torch.as_tensor(l) for l in mesh_loss])
+        one_loss = torch.stack([torch.as_tensor(l) for l in one_loss])
+        worst = ((mesh_loss - one_loss).abs()
+                 / one_loss.abs().clamp(min=1e-30)).max().item()
+        if worst > MESH_STEP_RTOL:
+            raise AssertionError(f'{label}: losses {mesh_loss.tolist()} '
+                                 f'against {one_loss.tolist()}')
+
+        def gradient(p, new):
+            """The step's gradient, flat in float64, from its SGD update."""
+            return torch.cat([
+                ((p[n][k].double() - (v.full(p[n][k].device)
+                                      if isinstance(v, ColumnShards)
+                                      else v).double()) / SGD_LR).reshape(-1)
+                for n, layer in new.items() for k, v in layer.items()])
+
+        g_mesh = gradient(params, mesh_new)
+        g_one = gradient(params, one_new)
+        g_ref = gradient(ref.params, ref_new)
+        norm = g_one.norm().item()
+        rel = (g_mesh - g_one).norm().item() / norm
+        to_ref = {'mesh': (g_mesh - g_ref).norm().item() / g_ref.norm().item(),
+                  'unsharded': (g_one - g_ref).norm().item()
+                  / g_ref.norm().item()}
+        print(f'  {label}: gradient 2-norm {norm:.4e}, the mesh step\'s '
+              f'differs by {rel:.3e} of it (max-norm ratio '
+              f'{(g_mesh - g_one).abs().max().item() / g_one.abs().max().item():.3e}); '
+              f'against the float64 step: mesh {to_ref["mesh"]:.3e}, '
+              f'unsharded {to_ref["unsharded"]:.3e}', flush=True)
+        if rel > MESH_STEP_RTOL:
+            raise AssertionError(f'{label}: the gradient differs by {rel:.3e} '
+                                 f'of its 2-norm')
+        worst = max(worst, rel)
+        adam = model(Adam(lr=1e-3))
+        state = adam._optimizer().init_state(adam.params)
+        mesh_step, one_step = make(adam)
+        out[label] = {
+            'ms': timed_step_ms(lambda: mesh_step(adam.params, state, 1e-3,
+                                                  *batch)),
+            'unsharded_ms': timed_step_ms(lambda: one_step(
+                adam.params, state, 1e-3, *batch)),
+            'max_rel_diff': worst, 'float64_rel_err': to_ref}
+        print(f'  {label}: {json.dumps(out[label])}', flush=True)
+    return out
+
+
+def mesh_path(card, params, weights, pages, unsharded, mono_w, char_w, rng):
+    """Phase mesh_path: the host cascade and the serving default's fused
+    tail over a mesh, each run's text against the unsharded pipelines'
+    in this call and the JAX text; the kernels' per-shard launches, each
+    shape held to its plain version on each card of the mesh; the mesh
+    training steps against the unsharded ones; pages/s, ms per step and
+    peak memory.  `unsharded` maps 'host' and 'fused' to (the unsharded
+    pipeline, its results on `pages` in this call, the JAX text).  Returns
+    ({run: launches}, {kernel: max error})."""
+    from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
+    from univer_ocr_tpu_torch.ops import kernels
+    from univer_ocr_tpu_torch.ops.kernels import _build, char_head
+    from univer_ocr_tpu_torch.ops.kernels.fused_monochrome import (
+        SHAPE_LAUNCHES)
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+    from univer_ocr_tpu_torch.parallel import make_mesh
+    from univer_ocr_tpu_torch.parallel.mesh import on_device
+    devices, label = mesh_devices()
+    mesh = make_mesh(devices=devices)
+    n_data = mesh.shape['data']
+    distinct = list(dict.fromkeys(devices))
+    print(f'mesh_path on {card}: {label} (torch.cuda.device_count() '
+          f'{torch.cuda.device_count()}): {mesh}', flush=True)
+    launches, errors = {}, {'fused_monochrome': 0.0, 'fused_char_head': 0.0}
+    shapes = {'fused_monochrome': set(), 'fused_char_head': set()}
+    summary = {'mesh': label, 'device_count': torch.cuda.device_count()}
+
+    def sharded(**kwargs):
+        return OCRPipeline(PAGE_SHAPE, weights=params, chunk=CHUNK, workers=8,
+                           collapse_runs=4, precision='highest',
+                           device='cuda', mesh=mesh, **kwargs)
+
+    with sharded() as s_host, sharded(**FUSED_MODE) as s_fused:
+        if not s_fused.fused_tail or s_fused._device_planner:
+            raise AssertionError('mesh_path: the fused tail must run host-'
+                                 'planned under a mesh')
+        for run, pipeline, (_, single, want) in (
+                ('mesh_host', s_host, unsharded['host']),
+                ('mesh_fused', s_fused, unsharded['fused'])):
+            _build.DEVICE_LAUNCHES.clear()
+            SHAPE_LAUNCHES.clear()
+            char_head.SHAPE_LAUNCHES.clear()
+            results, launches[run], _ = counted_run(pipeline, pages)
+            on = dict(_build.DEVICE_LAUNCHES)
+            mono = dict(SHAPE_LAUNCHES)
+            chars = dict(char_head.SHAPE_LAUNCHES)
+            print(f'{run} launches: {launches[run]}; by (kernel, card): '
+                  f'{on}; fused_monochrome by (B, H, W): {mono}; '
+                  f'fused_char_head by (N, W): {chars}', flush=True)
+            differ = [i for i, (a, b) in enumerate(zip(results, single))
+                      if a != b]
+            if differ or len(results) != len(single):
+                raise AssertionError(f'{run}: pages {differ} differ from the '
+                                     f'unsharded pipeline\'s text')
+            print(f'{run}: all {len(results)} pages equal the unsharded '
+                  f'text', flush=True)
+            check_text(run, results, want)
+            for name in shapes:
+                for dev in distinct:
+                    if on.get((name, dev.index), 0) < 1:
+                        raise AssertionError(f'{run}: {name} did not launch '
+                                             f'on {dev}')
+            per_shard = {CHUNK // n_data}
+            if {b for b, _, _ in mono} != per_shard:
+                raise AssertionError(f'{run}: fused_monochrome launched at '
+                                     f'{mono}, not {per_shard} pages')
+            lines = ({pipeline.LINE_DEVICE_BATCH} if run == 'mesh_fused'
+                     else {pipeline.DEVICE_BATCH // n_data})
+            if {n for n, _ in chars} != lines:
+                raise AssertionError(f'{run}: fused_char_head launched at '
+                                     f'{chars}, not {lines} lines')
+            shapes['fused_monochrome'] |= set(mono)
+            shapes['fused_char_head'] |= set(chars)
+
+        # each per-shard shape against the plain version, on each card,
+        # and timed on the first
+        times = {}
+        with backend_flags('highest'):
+            for dev in distinct:
+                mw = [w.to(dev) for w in mono_w]
+                cw = [w.to(dev) for w in char_w]
+                mono_prep = kernels.prepare_monochrome(*mw)
+                char_prep = kernels.prepare_char_head(*cw)
+                for b, h, w in sorted(shapes['fused_monochrome']):
+                    x = torch.tensor(rng.random((b, h, w, 1),
+                                                dtype=np.float32),
+                                     device=dev)
+                    with on_device(dev):
+                        errors['fused_monochrome'] = max(
+                            errors['fused_monochrome'], compare(
+                                f'fused_monochrome {(b, h, w, 1)} on {dev}',
+                                kernels.fused_monochrome(x, mono_prep),
+                                kernels.fused_monochrome_reference(x, *mw),
+                                MONO_TOL))
+                        if dev == distinct[0]:
+                            t = {'ms': cuda_ms(lambda: kernels.fused_monochrome(
+                                     x, mono_prep)),
+                                 'plain_ms': cuda_ms(
+                                     lambda: kernels.fused_monochrome_reference(
+                                         x, *mw))}
+                            t['bound_ms'], t['bound_by'] = bound_ms(
+                                2 * 4 * x.numel()
+                                + 4 * sum(v.numel() for v in mw),
+                                2 * (9 * 16 + 9 * 16) * x.numel())
+                            times[f'fused_monochrome {(b, h, w, 1)}'] = t
+                for n, w in sorted(shapes['fused_char_head']):
+                    x = char_inputs(params, rng, n, w).to(dev)
+                    with on_device(dev):
+                        errors['fused_char_head'] = max(
+                            errors['fused_char_head'], compare(
+                                f'fused_char_head {(n, w, 64)} on {dev}',
+                                kernels.fused_char_head(x, char_prep),
+                                kernels.fused_char_head_reference(x, *cw),
+                                CHAR_TOL))
+                        if dev == distinct[0]:
+                            t = {'ms': cuda_ms(lambda: kernels.fused_char_head(
+                                     x, char_prep)),
+                                 'plain_ms': cuda_ms(
+                                     lambda: kernels.fused_char_head_reference(
+                                         x, *cw))}
+                            n_cols = n * w
+                            flops = 2 * n_cols * (512 * 1024 + 1024 * 128
+                                                  + 128 * 162)
+                            t['bound_ms'], t['bound_by'] = bound_ms(
+                                4 * (x.numel() + n_cols * cw[2].shape[1]
+                                     + sum(v.numel() for v in cw)),
+                                3 * flops, TF32_FLOPS)
+                            times[f'fused_char_head {(n, w, 64)}'] = t
+        for shape, t in times.items():
+            print(f'  {shape} per shard on {distinct[0]}: {json.dumps(t)}',
+                  flush=True)
+        summary['kernel_times'] = times
+
+        with backend_flags('highest'):
+            summary['steps'] = mesh_steps(mesh, devices, weights, pages, rng)
+
+        rates = {}
+        for run, pipeline in (('host', unsharded['host'][0]),
+                              ('mesh host', s_host),
+                              ('fused', unsharded['fused'][0]),
+                              ('mesh fused', s_fused)):
+            want = unsharded[run.split()[-1]][2]
+            rates[run] = timed_runs(pipeline, pages, run, want)[0]
+        summary['pages_per_s'] = rates
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s_fused.ocr_pages(pages)
+        torch.cuda.synchronize()
+        summary['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    print(f'mesh_path on {card}, {label}: {json.dumps(summary)}', flush=True)
+    return launches, errors
+
+
 def main():
+    mesh_only = sys.argv[1:] == ['--mesh']
+    if sys.argv[1:] and not mesh_only:
+        print('usage: chip_smoke.py [--mesh]', file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this run '
               'needs a CUDA card', file=sys.stderr)
@@ -1638,6 +2006,25 @@ def main():
                            workers=8, collapse_runs=4, precision=precision,
                            device='cuda', **kwargs)
 
+    def ok_line():
+        print(card, flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': kind,
+            'count': torch.cuda.device_count()}}), flush=True)
+
+    with open(DEFAULT_CHECKPOINT) as fp:
+        committed = json.load(fp)
+    if mesh_only:
+        with pipeline('highest') as host, \
+                pipeline('highest', **FUSED_MODE) as fused, \
+                phase('mesh_path'):
+            mesh_path(card, params, committed, pages, {
+                'host': (host, host.ocr_pages(pages), expected),
+                'fused': (fused, fused.ocr_pages(pages), expected_fused)},
+                mono_w, char_w, rng)
+        ok_line()
+        return 0
+
     with phase('kernels'), backend_flags('highest'):
         err = 0.0
         # a chunk, one page (the single-page chain) and a ragged shape
@@ -1681,6 +2068,7 @@ def main():
             print(f'path launches: {launches["path"]}; fused_char_head by '
                   f'width: {widths}', flush=True)
             check_text('path', results, expected)
+            unsharded = {'host': (host, results, expected)}
             for name in ('fused_monochrome', 'fused_char_head'):
                 if launches['path'].get(name, 0) < 1:
                     raise AssertionError(f'{name} did not launch on the path')
@@ -1727,6 +2115,7 @@ def main():
                   f'{syncs_per_launch(fused.host_syncs)} per paragraph '
                   f'launch', flush=True)
             check_text('fused_path', results, expected_fused)
+            unsharded['fused'] = (fused, results, expected_fused)
             kernels_launched('fused_path')
             if fused.escalation_stats.get('chain_fallback', 0):
                 raise AssertionError('fused_path: a page left the device '
@@ -1835,12 +2224,18 @@ def main():
                                      f'{launches["train_path"]}')
 
         with phase('batched_train_path'):
-            with open(DEFAULT_CHECKPOINT) as fp:
-                committed = json.load(fp)
             launches['batched_train_path'], batched_errors = (
                 batched_train_path(committed, params, mono_prep, char_prep,
                                    mono_w, char_w, rng))
             for name, err in batched_errors.items():
+                errors[name] = max(errors[name], err)
+
+        with phase('mesh_path'):
+            mesh_launches, mesh_errors = mesh_path(
+                card, params, committed, pages, unsharded, mono_w, char_w,
+                rng)
+            launches.update(mesh_launches)
+            for name, err in mesh_errors.items():
                 errors[name] = max(errors[name], err)
 
         with phase('times'), backend_flags('highest'):
@@ -1990,10 +2385,7 @@ def main():
          'tables_path': tables_char, 'device_path': device_char,
          'host_path': host_char},
     ]}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': kind,
-        'count': torch.cuda.device_count()}}), flush=True)
+    ok_line()
     return 0
 
 

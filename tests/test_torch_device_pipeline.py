@@ -273,14 +273,32 @@ def test_dispatcher_errors_surface_on_the_caller(pages):
             pipeline.ocr_pages(pages[:1])
 
 
+def _glyph_payload(batch, lines):
+    """A fused-tail glyph payload of `batch` paragraph slots whose pool
+    holds `lines`, [(paragraph, glyph ids)] in pool order."""
+    from univer_ocr_tpu_torch.models import fused_tail
+    P, G = fused_tail.LINE_POOL, fused_tail.MAX_GLYPHS
+    glyphs = np.zeros((P, G), np.uint8)
+    n_glyphs = np.zeros(P, np.uint8)
+    para = np.full(P, 255, np.uint8)
+    n_lines = np.zeros(batch, np.uint8)
+    for slot, (b, ids) in enumerate(lines):
+        glyphs[slot, :len(ids)] = ids
+        n_glyphs[slot], para[slot] = len(ids), b
+        n_lines[b] += 1
+    return np.concatenate([glyphs.reshape(-1), n_glyphs, para, n_lines,
+                           np.zeros(batch, np.uint8)])
+
+
 @pytest.mark.parametrize('kwargs', [
     dict(device_cascade=True, collapse_runs=4),     # JAX's fused-tail default
     dict(device_cascade=True, fused_tail=True)])
-def test_unported_combinations_raise(kwargs):
+def test_fused_combinations_and_the_shard_merge(kwargs):
     """The fused tail is ported: wherever JAX runs it, the pipeline builds
     with it and its device planner, and where JAX turns it off it is off.
-    What it still leaves out raises, naming the roadmap item: the merge of
-    per-shard payloads, which needs the mesh."""
+    The merge of per-shard payloads (a mesh's 2 shards, each with its own
+    line pool and its share of the launch) gives the unsharded launch's
+    texts."""
     from univer_ocr_tpu_torch.models import fused_tail
     with OCRPipeline(PAGE_SHAPE, device='cpu', **kwargs) as pipeline:
         assert pipeline.fused_tail and pipeline._device_planner
@@ -288,9 +306,18 @@ def test_unported_combinations_raise(kwargs):
                   dict(kwargs, exact_bands=True)):
         with OCRPipeline(PAGE_SHAPE, device='cpu', **other) as pipeline:
             assert not pipeline.fused_tail and not pipeline._device_planner
-    buf = np.zeros(2 * fused_tail.fused_payload_nbytes(8), np.uint8)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        fused_tail.unpack_fused_payload(buf, 4, n_shards=2)
+    rs = np.random.RandomState(0)
+    lines = [(b, rs.randint(1, 162, rs.randint(1, 30)))
+             for b in range(6) for _ in range(rs.randint(1, 4))]
+    texts, suspects = fused_tail.unpack_fused_payload(
+        _glyph_payload(8, lines), 6)
+    shards = np.concatenate([
+        _glyph_payload(4, [(b, ids) for b, ids in lines if b < 4]),
+        _glyph_payload(4, [(b - 4, ids) for b, ids in lines if b >= 4])])
+    merged, merged_suspects = fused_tail.unpack_fused_payload(shards, 6,
+                                                              n_shards=2)
+    assert merged == texts and all(texts)
+    np.testing.assert_array_equal(merged_suspects, suspects)
 
 
 def test_cpu_runs_plain_versions_in_the_pipeline_precision(monkeypatch):

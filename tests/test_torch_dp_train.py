@@ -308,23 +308,69 @@ def test_predicted_samples_match_jax(precision, weights, pages):
             assert stepped <= STEP_SHARE * total, (mode, stepped, total)
 
 
+def _mesh_runs(entry, pages, weights, tmp_path, mesh):
+    """One entry of the batched trainer on the Line stage: per-sample
+    losses and params ('steps'), or the best validation loss and the
+    trained Line weights."""
+    quiet = lambda *a: None
+    if entry == 'steps':
+        tm = tmodel.make_line(SHAPE, optimizer=TAdam(lr=LR), device='cpu')
+        tm.set_weights(weights)
+        train_step, _ = tdp.make_batched_seg_step(tm, 'Line', mesh=mesh)
+        params, _, per = train_step(
+            tm.params, tm._optimizer().init_state(tm.params), LR,
+            *_tensors(*_seg_batch(np.random.RandomState(5))))
+        return per, params
+    if entry == 'stage':
+        samples = _line_samples(pages)
+        model, best = tdp.train_stage_batched(
+            tmodel.Modes.TRAIN_LINE, samples, samples[:2], weights, 1, LR,
+            0.9, batch=4, mesh=mesh, input_shape=(1, 256, 384, 1),
+            log=quiet, device='cpu')
+        return torch.tensor(best), model.params
+    window = pages[:, WINDOW[0], WINDOW[1]]
+    train = ArrayDataset(window[:2], LAYER_NAMES_PLAIN)
+    validation = ArrayDataset(window[2:], LAYER_NAMES_PLAIN)
+    out = tmp_path / f'{entry}_{mesh is not None}.json'
+    stage = [(tmodel.Modes.TRAIN_LINE, LR, 0.9, 1)]
+    if entry == 'curriculum':
+        out.write_text(json.dumps(weights))
+        results = tdp.train_model_batched(
+            stage, train, validation, batch=4, mesh=mesh, train_size=2,
+            val_size=1, log=quiet, checkpoint_path=out, device='cpu')
+    else:
+        from univer_ocr_tpu_torch.models.train import TrainReporter
+
+        class Quiet:
+            def emit(self, event, payload):
+                pass
+        results = train_model(train, validation, stage, train_size=2,
+                              val_size=1, weights_out=out, device='cpu',
+                              batched=True, batch=4, mesh=mesh,
+                              reporter=TrainReporter(sink=Quiet()))
+    trained = json.loads(out.read_text())
+    return (torch.tensor(results[0]['best_losses']['Line']),
+            {name: {k: torch.tensor(v) for k, v in entry.items()}
+             for name, entry in trained.items() if name.startswith('Line')})
+
+
 @pytest.mark.parametrize('entry', ['steps', 'stage', 'curriculum',
                                    'train_model'])
-def test_mesh_is_not_ported(entry, tmp_path):
-    mesh = object()
-    _, tm = _models('Line')
-    with pytest.raises(NotImplementedError, match='item 9'):
-        if entry == 'steps':
-            tdp.make_batched_seg_step(tm, 'Line', mesh=mesh)
-        elif entry == 'stage':
-            tdp.train_stage_batched(tmodel.Modes.TRAIN_LINE, [], [], {}, 1,
-                                    LR, 0.9, mesh=mesh, device='cpu')
-        elif entry == 'curriculum':
-            tdp.train_model_batched([], [], [], mesh=mesh, device='cpu')
-        else:
-            train_model([], [], [(tmodel.Modes.TRAIN_LINE, LR, 0.9, 1)],
-                        weights_out=tmp_path / 'w.json', batched=True,
-                        mesh=mesh, device='cpu')
+def test_mesh_entries_accept_a_mesh(entry, tmp_path, pages, weights):
+    """Each entry of the batched trainer under a 2-shard CPU mesh
+    (parallel.make_mesh(devices=[cpu] * 2)) gives the unsharded run's
+    losses and Line weights within 1e-5 (the batch splits over the
+    shards; the gradients sum in shard order)."""
+    from univer_ocr_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=[torch.device('cpu')] * 2)
+    loss, params = _mesh_runs(entry, pages, weights, tmp_path, mesh)
+    loss_1, params_1 = _mesh_runs(entry, pages, weights, tmp_path, None)
+    torch.testing.assert_close(loss, loss_1, rtol=1e-5, atol=1e-6)
+    assert sorted(params) == sorted(params_1) and params
+    for name in params_1:
+        for k in params_1[name]:
+            torch.testing.assert_close(params[name][k], params_1[name][k],
+                                       rtol=1e-5, atol=1e-6)
 
 
 def _line_samples(pages, n=4):

@@ -12,6 +12,8 @@ counterpart; the code inside is plain PyTorch on an explicit device:
     built with one `nvcc` call and bound with `ctypes`;
   * `models/`: masked fixed-shape forwards, shape buckets, the host-cascade
     `OCRPipeline` and the `predict` entry point;
+  * `parallel/`: the device mesh, driven by one process (sharded
+    serving through `OCRPipeline(mesh=...)`, DP and TP training steps);
   * `interpreter`: the host CV between the models (numpy + scipy);
   * `weights`: the `model_weights.json` checkpoint loader.
 

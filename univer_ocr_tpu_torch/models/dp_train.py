@@ -23,8 +23,11 @@ stages:
 
 The steps run the plain forwards under autograd (`monochrome_forward`,
 `line_forward_masked`, `char_forward_masked` with `head='xla'`): neither
-CUDA kernel has a backward.  The JAX package's `mesh` (a batch sharded
-over a data axis) is not ported: it raises NotImplementedError.
+CUDA kernel has a backward.  With a `mesh` (parallel/mesh.py) each batch
+splits over its 'data' shards: each shard's loss divides by the weight
+summed over every shard and counts the regularization 1/n_data times,
+and the gradients are summed over the shards in shard order before the
+one update (JAX's shard_map with `psum`).
 """
 
 import random
@@ -37,10 +40,12 @@ import torch
 from ..interpreter import (crop_and_rotate_single_paragraph, extract_line,
                            label_char_line, label_layer, plan_paragraph_lines)
 from ..nn.checkpoint import read_weights, save_weights
-from ..nn.models import value_and_grad
 from ..nn.optimizers import Adam
 from ..ops.losses import segmentation_dice_2d_per_sample
 from ..ops.precision import backend_flags
+from ..parallel.data_parallel import (add_in_order, shard_value_and_grad,
+                                      shards_of)
+from ..parallel.mesh import gather, mesh_device, on_device, replicate
 from ..weights import refuse_committed
 from .bucketing import (CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT,
                         line_shape_menu, make_divisible_by, pick_char_width,
@@ -51,13 +56,6 @@ from .fastpath import (_mask_hw, char_forward_masked, line_forward_masked,
                        monochrome_forward)
 from .model import (Modes, make_char, make_line, make_monochrome,
                     make_paragraph)
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh sharding of the batched trainer is not ported yet '
-            '(ROADMAP, Queue A, item 9: parallel)')
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +273,7 @@ def _seg_forward(prefix):
     return forward
 
 
-def _weighted_steps(model, per_sample):
+def _weighted_steps(model, per_sample, mesh=None):
     """(train, eval) steps over `per_sample(params, *args) -> (B,)` losses.
 
     train(params, opt_state, lr, *args, weight) -> (params, opt_state,
@@ -283,28 +281,49 @@ def _weighted_steps(model, per_sample):
     losses (the per-sample trainer's gradient scale, so the curriculum's
     lr table transfers) plus the regularization once, then the model's
     optimizer update.  eval(params, *args, weight) -> per_sample * weight.
+    Under a `mesh` the batch splits over its 'data' shards and the
+    outputs merge in shard order on the mesh's first device.
     """
     opt = model._optimizer()
     reg_fn = model.regularization_fn
+    n_data = mesh.shape['data'] if mesh is not None else 1
+
+    def shards(batch):
+        """The batch's per-shard args and the shards' devices."""
+        if mesh is None:
+            return [list(batch)], [batch[0].device]
+        return shards_of(batch, mesh), mesh.data_devices()
 
     def train(params, opt_state, lr, *batch):
-        *args, weight = batch
+        per_shard, devices = shards(batch)
+        master = next(iter(next(iter(params.values())).values())).device
+        # the weighted mean's denominator: the weight of every shard
+        total = add_in_order([args[-1].sum() for args in per_shard], master)
 
-        def loss_fn(p):
+        def loss_fn(p, *args):
+            *args, weight = args
             per = per_sample(p, *args)
             return (torch.sum(per * weight)
-                    / torch.clamp(torch.sum(weight), min=1.0)
-                    + reg_fn(p)), per
+                    / torch.clamp(total.to(weight.device), min=1.0)
+                    + reg_fn(p) / n_data), (per * weight).detach()
 
-        _, per, grads = value_and_grad(loss_fn, params, list(params))
+        out, grads = shard_value_and_grad(loss_fn, params, per_shard,
+                                          devices, master)
         with torch.no_grad():
             new_params, new_state = opt.update(params, grads, opt_state, lr)
-        return new_params, new_state, per * weight
+        return new_params, new_state, gather(out, master)
 
     def evaluate(params, *batch):
-        *args, weight = batch
+        per_shard, devices = shards(batch)
+        copies = (replicate(params, mesh).parts if mesh is not None
+                  else [params])
+        out = []
         with torch.no_grad():
-            return per_sample(params, *args) * weight
+            for p, args, dev in zip(copies, per_shard, devices):
+                with on_device(dev):
+                    *args, weight = args
+                    out.append(per_sample(p, *args) * weight)
+        return gather(out, devices[0])
 
     return train, evaluate
 
@@ -316,14 +335,13 @@ def make_batched_seg_step(model, prefix, mesh=None):
     train(params, opt_state, lr, X, y, hv, wv, weight) -> (params,
     opt_state, per_sample_dice * weight); eval drops the update.  X is
     (B, Hb, Wb, C) zero-padded, hv/wv (B,) true extents, weight (B,) the
-    {0, 1} filler mask."""
-    _no_mesh(mesh)
+    {0, 1} filler mask.  Under a `mesh` the batch splits over 'data'."""
     forward = _seg_forward(prefix)
 
     def per_sample(params, X, y, hv, wv):
         return segmentation_dice_2d_per_sample(forward(params, X, hv, wv), y)
 
-    return _weighted_steps(model, per_sample)
+    return _weighted_steps(model, per_sample, mesh)
 
 
 def make_batched_char_step(model, mesh=None):
@@ -331,8 +349,8 @@ def make_batched_char_step(model, mesh=None):
     Wb, n_chars), wv (B,) true widths, weight (B,).  A sample's loss is
     the per-sample trainer's column-mean softmax cross-entropy
     (fastpath.masked_char_loss): summed over its labeled columns and
-    divided by its true width."""
-    _no_mesh(mesh)
+    divided by its true width.  Under a `mesh` the batch splits over
+    'data'."""
 
     def per_sample(params, X, y, wv):
         logits = char_forward_masked(params, X, wv)
@@ -341,7 +359,7 @@ def make_batched_char_step(model, mesh=None):
             torch.sum(torch.exp(shifted), dim=2, keepdim=True))
         return -torch.sum(y * log_probs, dim=(1, 2)) / wv
 
-    return _weighted_steps(model, per_sample)
+    return _weighted_steps(model, per_sample, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -467,10 +485,16 @@ def train_stage_batched(mode, train_samples, val_samples, weights,
     validation into `checkpoint_path` (merge-saving).  With `eval_gate`
     (evaluation.make_eval_gate) the per-epoch writes are withheld: the
     stage's best-by-validation weights are offered to the gate once at the
-    stage's end and written only on its approval.
+    stage's end and written only on its approval.  With a `mesh` every
+    batch splits over its 'data' shards (`batch` must divide over them)
+    and the model lives on the mesh's first device.
     Returns (model, best_val_loss).
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        if batch % mesh.shape['data']:
+            raise ValueError(f'a batch of {batch} does not divide over '
+                             f"{mesh.shape['data']} data shards")
+        device = mesh_device(mesh, device)
     name, factory = _STAGE_MODEL[mode]
     model = factory(input_shape, optimizer=Adam(lr=lr), device=device)
     if weights:
@@ -478,9 +502,9 @@ def train_stage_batched(mode, train_samples, val_samples, weights,
     device = model._compute_device()
 
     if mode is Modes.TRAIN_CHAR:
-        train_step, eval_step = make_batched_char_step(model)
+        train_step, eval_step = make_batched_char_step(model, mesh)
     else:
-        train_step, eval_step = make_batched_seg_step(model, name)
+        train_step, eval_step = make_batched_seg_step(model, name, mesh)
 
     rng = np.random.RandomState(seed)
     val_batches = make_batches(val_samples, mode, batch,
@@ -574,11 +598,14 @@ def train_model_batched(curriculum, train_dataset, validation_dataset,
     the stage's start, so stages compose (Char sees the just-trained
     Line model's plans); `predicted='mix'` adds the ground-truth samples
     to the train set (Char's jittered twice), validation staying
-    predicted.  Returns per stage: mode, best validation loss, sample
-    counts and the seconds the samples took to build.
+    predicted.  With a `mesh` the stages' batches split over its 'data'
+    shards; the samples are built on its first device.  Returns per
+    stage: mode, best validation loss, sample counts and the seconds the
+    samples took to build.
     """
-    _no_mesh(mesh)
     refuse_committed(checkpoint_path)
+    if mesh is not None:
+        device = mesh_device(mesh, device)
     rng = random.Random(seed) if rng is None else rng
     results = []
     for mode, lr, lr_step, epochs in curriculum:
@@ -615,7 +642,7 @@ def train_model_batched(curriculum, train_dataset, validation_dataset,
             f'in {build_s:.1f}s')
         _, best = train_stage_batched(
             mode, train_samples, val_samples, weights, epochs, lr, lr_step,
-            batch=batch, input_shape=input_shape,
+            batch=batch, mesh=mesh, input_shape=input_shape,
             checkpoint_path=checkpoint_path, log=log, seed=seed,
             eval_gate=eval_gate, device=device)
         results.append({'mode': mode.name,

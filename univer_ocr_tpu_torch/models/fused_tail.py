@@ -431,12 +431,27 @@ def unpack_fused_payload(buf, n_paragraphs, n_shards=1):
     (n_paragraphs,) uint8 bitmask: nonzero means escalate; bits
     merge_suspect, cross_axis, table overflow, line-slot overflow, pool
     overflow, width truncation, glyph overflow).  The launch batch comes
-    from the buffer's length.  The merge of per-shard segments (JAX's
-    mesh) is not ported: n_shards > 1 raises."""
-    if n_shards != 1:
-        raise NotImplementedError(
-            'the per-shard payload merge needs the mesh (ROADMAP item 9)')
+    from the buffer's length.
+
+    Under a mesh each of `n_shards` data shards runs the tail on its share
+    of the launch batch with its own line pool, and the payload is the
+    shards' segments end to end: each segment is unpacked with its share
+    (its slot count read from its layout) and the texts and suspects are
+    stitched back in batch order."""
     buf = np.asarray(buf)
+    if n_shards > 1:
+        segments = np.split(buf, n_shards)
+        b_local = (segments[0].shape[0] - LINE_POOL * MAX_GLYPHS
+                   - 2 * LINE_POOL) // 2
+        texts, suspects = [], [np.zeros(0, np.uint8)]
+        for s, segment in enumerate(segments):
+            n_s = min(max(n_paragraphs - s * b_local, 0), b_local)
+            if n_s == 0:
+                break
+            t, su = unpack_fused_payload(segment, n_s)
+            texts.extend(t)
+            suspects.append(su)
+        return texts, np.concatenate(suspects)
     P, G = LINE_POOL, MAX_GLYPHS
     # the device wrote n_lines and suspect for its whole batch, fillers
     # included; the real paragraphs come first

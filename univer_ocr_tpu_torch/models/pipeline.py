@@ -51,6 +51,18 @@ A dispatcher thread runs chunk i+1's dispatch while the caller's thread
 collects chunk i, and the paragraph launches of a chunk are handled in
 parallel on the pool.
 
+With a `mesh` (parallel/mesh.py), as in JAX, every launch batch of the
+front and of the Line and Char stages splits over the mesh's 'data'
+shards (parallel/serving.py): each shard runs the stage on its slice, on
+its own device, with its own copy of the weights and of the kernels'
+prepared weights, and the outputs merge in shard order on the mesh's
+first device.  The page and crop stacks the gathers read are copied to
+every shard once per chunk and once per paragraph launch; the fused tail
+runs once per shard with the shard's own line pool, and the host merges
+the shards' payload segments (`fused_tail.unpack_fused_payload`).  The
+device planners and the single-page chain are off under a mesh, as in
+JAX: chunks are planned on the host.
+
 On the card Monochrome and the Char head run as the CUDA kernels
 (ops/kernels), in float32 whatever the precision, as the JAX package's
 Pallas kernels do; on the CPU they run as their plain versions in the
@@ -72,6 +84,8 @@ no stage toggles them; two pipelines of different precisions must not run
 """
 
 import contextlib
+import copy
+import functools
 import queue
 import sys
 import threading
@@ -92,6 +106,8 @@ from ..interpreter import (_ORIENTATION_KEYS, _extremal_coords,
                            plan_paragraph_lines, pred_ids_to_text,
                            rotate_array)
 from ..ops.kernels import fused_monochrome
+from ..parallel.mesh import Replicated, mesh_device, replicate, to_device
+from ..parallel.serving import shard_cascade_stage, shard_fn_over_batch
 from ..weights import params_from_numpy, random_params
 from .band_tables import (PROFILE_ROW_DS, _group_centers, _shear_span,
                           unpack_tables_payload)
@@ -149,7 +165,10 @@ class OCRPipeline:
     `fused_tail`: as in the JAX pipeline, every combination; the fused
     tail is on by default in the tables mode with an integer
     `collapse_runs`, and then chunks go through the device planner and
-    single pages through the chain.  Set `timers` to a
+    single pages through the chain.  `mesh`: None, or a
+    `parallel.make_mesh` mesh whose 'data' shards split every launch batch
+    (its devices of `device`'s type; DEVICE_BATCH must divide over
+    them).  Set `timers` to a
     `utils.profiling.StageTimers` to time the stages
     (with it set, `timeline` records every device-to-host pull as
     (tag, start, end, bytes)).  Close the pipeline (`close()` or `with`)
@@ -173,7 +192,7 @@ class OCRPipeline:
                  collapse_runs=False, quantized_transfers=True,
                  precision='highest', device=None, device_cascade=False,
                  exact_bands=False, escalation=True, sampler=None,
-                 fused_tail=None):
+                 fused_tail=None, mesh=None):
         if sampler is None:
             sampler = 'gather' if exact_bands else 'twopass'
         if sampler not in ('gather', 'twopass'):
@@ -188,10 +207,20 @@ class OCRPipeline:
                           and collapse_runs >= 1)
         self.fused_tail = bool(fused_tail) and self.band_tables
         #: the device planners (chunk planner, single-page chain) go
-        #: with the fused tail; tests clear it to drive the
-        #: host-planned fused dispatch, as JAX's clear _chunk_planner
-        self._device_planner = self.fused_tail
-        self.device = resolve_device(device)
+        #: with the fused tail but not with a mesh; tests clear it to
+        #: drive the host-planned fused dispatch, as JAX's clear
+        #: _chunk_planner
+        self._device_planner = self.fused_tail and mesh is None
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh_device(mesh, device))
+        n_data = 1 if mesh is None else mesh.shape['data']
+        if self.DEVICE_BATCH % n_data:
+            raise ValueError(f'DEVICE_BATCH={self.DEVICE_BATCH} must divide '
+                             f'over the data axis ({n_data} shards)')
+        #: the data shards; the fused tail's payload has one segment per
+        #: shard, each with its own line pool
+        self._n_data = n_data
         self.page_shape = tuple(page_shape)
         self.chunk = chunk
         self.collapse_runs = collapse_runs
@@ -204,12 +233,7 @@ class OCRPipeline:
         else:
             self.params = random_params(
                 torch.Generator().manual_seed(RANDOM_INIT_SEED), self.device)
-        if self.device.type == 'cuda':
-            # the kernels' weights, prepared once for every launch
-            self.mono_weights = monochrome_weights(self.params)
-            self.char_head = char_head_weights(self.params)
-        else:
-            self.mono_weights, self.char_head = None, 'xla'
+        self.mono_weights, self.char_head = self._kernel_weights(self.params)
         self._pool = ThreadPoolExecutor(max_workers=workers)
         #: device-to-host transfers: each waits on its copy's event here,
         #: so no dispatching thread blocks on one
@@ -231,6 +255,47 @@ class OCRPipeline:
         #: device planners' page CCL) and 'chain_plan' (the single-page
         #: chain reading its component count)
         self.host_syncs = Counter()
+        if mesh is not None:
+            self._shard_stages(mesh)
+
+    @staticmethod
+    def _kernel_weights(params):
+        """The kernels' weights, prepared once for every launch on the
+        card; on the CPU the plain versions run instead."""
+        device = params['Monochrome/conv_1']['w'].device
+        if device.type == 'cuda':
+            return monochrome_weights(params), char_head_weights(params)
+        return None, 'xla'
+
+    def _shard_stages(self, mesh):
+        """Route the device stages through the mesh (JAX's
+        shard_fn_over_batch and shard_cascade_stage): each 'data' shard
+        runs a stage on a view of this pipeline whose weights and
+        prepared kernel weights live on the shard's device (one view per
+        distinct device), with the page and crop stacks as its
+        replicated arguments."""
+        views = {}
+        for dev in mesh.data_devices():
+            if dev not in views:
+                view = copy.copy(self)
+                view.mesh, view.device = None, dev
+                view.params = to_device(self.params, dev)
+                view.mono_weights, view.char_head = self._kernel_weights(
+                    view.params)
+                views[dev] = view
+        shards = Replicated(views[dev] for dev in mesh.data_devices())
+        cls = type(self)
+        for name, n_batch in (('front', 1), ('front_resident', 1),
+                              ('line_masks', 3), ('line_preds', 3),
+                              ('char_ids', 2)):
+            setattr(self, name, functools.partial(shard_fn_over_batch(
+                getattr(cls, name), mesh, n_batch), shards))
+        for name, n_replicated, statics in (
+                ('stage_rot_blob', 2, ()), ('stage_rot_res', 3, (4, 5)),
+                ('stage_blob_fused', 2, ()), ('stage_res_fused', 3, (4, 5)),
+                ('line_stage', 2, (3, 4))):
+            setattr(self, name, functools.partial(shard_cascade_stage(
+                getattr(cls, name), mesh, n_replicated, statics), shards))
 
     def close(self):
         self._pool.shutdown(wait=True)
@@ -263,9 +328,12 @@ class OCRPipeline:
         stream, and the transfer pool waits for its event."""
         if t.device.type == 'cuda':
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            # the copy and its event on t's card: under a mesh t may live
+            # on another card than the current one
+            with torch.cuda.device(t.device):
+                host.copy_(t, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
         else:
             host, done = t, None
 
@@ -474,6 +542,12 @@ class OCRPipeline:
             np.asarray(np.asarray(p) * 255.0, np.uint8)
             if np.asarray(p).dtype != np.uint8 else np.asarray(p)
             for p in chunk])
+        if self.mesh is not None and len(batch) % self._n_data:
+            # a tail chunk must still divide over the data shards; blank
+            # pages give no paragraphs and only len(chunk) rows are read
+            pad = self._n_data - len(batch) % self._n_data
+            batch = np.concatenate(
+                [batch, np.zeros((pad,) + batch.shape[1:], np.uint8)])
         return self._tensor(batch)
 
     # -- host cascade ------------------------------------------------------
@@ -944,8 +1018,10 @@ class OCRPipeline:
             start = 0
             while start < len(idxs):
                 # a tail of 4 or fewer plans takes a batch of 4, as in the
-                # JAX package's parity mode
-                Bsub = 4 if len(idxs) - start <= 4 else B
+                # JAX package's parity mode; under a mesh every batch
+                # divides over the data shards
+                Bsub = (4 if len(idxs) - start <= 4 and self.mesh is None
+                        else B)
                 sel = idxs[start:start + Bsub]
                 start += Bsub
                 needs_blob = any(plans[i]['needs_blob'] for i in sel)
@@ -1046,6 +1122,11 @@ class OCRPipeline:
         mono_dev = self._pad_stack(mono_dev)
         # the float 0/1 stack the resident crop gather reads
         para_dev = self._pad_stack(para_dev).float()
+        if self.mesh is not None:
+            # every shard's gathers read the whole stacks: one copy to
+            # each shard's device per chunk
+            mono_dev = replicate(mono_dev, self.mesh)
+            para_dev = replicate(para_dev, self.mesh)
         with self._track('host_paragraph_plans'):
             # serial: scipy's ndimage calls hold the GIL
             plans = [p
@@ -1142,6 +1223,10 @@ class OCRPipeline:
             refs = []
             # with the fused tail, only flagged paragraphs have lines here
             if flat or direct is None:
+                if self.mesh is not None:
+                    # the crop stack is the line stage's shared source:
+                    # one copy to each shard's device per launch
+                    crops_dev = replicate(crops_dev, self.mesh)
                 with self._track('dispatch_line_stage'):
                     refs = self._dispatch_line_stage(crops_dev, flat)
             id_futures = [(ref_sel, self._pull(ids_dev, 'char_ids'))
@@ -1158,7 +1243,8 @@ class OCRPipeline:
         Returns (the wave's future, row, the launch's own payload bytes)
         of each launch: a batch of 4 has a shorter payload than one of
         DEVICE_BATCH."""
-        nb = fused_tail.fused_payload_nbytes(self.DEVICE_BATCH)
+        nb = self._n_data * fused_tail.fused_payload_nbytes(
+            self.DEVICE_BATCH // self._n_data)
         futures = []
         for start in range(0, len(launches), self.SMALL_SLOTS):
             wave = launches[start:start + self.SMALL_SLOTS]
@@ -1179,7 +1265,8 @@ class OCRPipeline:
         the tables, which the caps leave intact).  `menus` holds each
         paragraph's (hb, wb).  Returns (line plans [(slot, plan)] of the
         flagged paragraphs, {slot: decoded lines} of the others)."""
-        texts, suspects = fused_tail.unpack_fused_payload(buf, n)
+        texts, suspects = fused_tail.unpack_fused_payload(
+            buf, n, n_shards=self._n_data)
         counts = Counter(paragraphs=n,
                          cross_axis=int(((suspects >> 1) & 1).sum()),
                          capacity=int((suspects >= 4).sum()))

@@ -37,6 +37,7 @@ from ..nn.checkpoint import write_weights
 from ..nn.optimizers import Adam
 from ..nn.progress_tracker import ProgressTracker
 from ..ops.precision import backend_flags
+from ..parallel.mesh import mesh_device
 from ..weights import DEFAULT_CHECKPOINT, refuse_committed
 from .constants import TRAIN_FIXTURE, TRAINED_WEIGHTS_PATH
 from .datasets import Dataset, RandomSelectDataset, load_page_arrays
@@ -195,7 +196,9 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     from the serving crop distribution.  `eval_gate=True` holds every
     write of `weights_out` to the end-to-end score of the eval corpus
     (evaluation.make_eval_gate, its incumbent read from `weights_out`).
-    `mesh` is not ported (NotImplementedError).  The run reports to
+    With a `mesh` (parallel/mesh.py) the batched stages' batches split
+    over its 'data' shards and the run computes on its first device;
+    TRAIN_ALL stays per-sample, as in JAX.  The run reports to
     `reporter` (default: the module's TrainReporter, which init_emitter
     connects to the dashboard).
 
@@ -203,7 +206,8 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     rollbacks, and the sample orders the trainer drew; a batched stage's:
     mode, best validation loss, sample counts and build seconds.
     """
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None
+                            else mesh_device(mesh, device))
     weights_out = Path(weights_out)
     refuse_committed(weights_out)
     reporter = _reporter if reporter is None else reporter

@@ -275,8 +275,11 @@ class Model(BaseModel):
     # ------------------------------------------------------------------
     # Forward over the DAG
     # ------------------------------------------------------------------
-    def forward_fn(self, params, inputs):
-        """(params dict, list of input tensors) -> list of outputs."""
+    def forward_fn(self, params, inputs, apply_layer=None):
+        """(params dict, list of input tensors) -> list of outputs.
+        `apply_layer(name, layer, layer_params, inputs)`, when given,
+        runs each leaf layer in place of `layer.apply` (the tensor-parallel
+        step's column-sharded dense layers; parallel/data_parallel.py)."""
         outputs = {}
 
         def rec_forward(layer_name):
@@ -295,7 +298,11 @@ class Model(BaseModel):
                 return outputs[layer_name]
 
             layer = self.layers[layer_name]
-            result = layer.apply(params.get(layer_name, {}), next_inputs)
+            if apply_layer is None:
+                result = layer.apply(params.get(layer_name, {}), next_inputs)
+            else:
+                result = apply_layer(layer_name, layer,
+                                     params.get(layer_name, {}), next_inputs)
             if isinstance(result, list):
                 result = result[0]
             outputs[layer_name] = result

@@ -32,6 +32,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: adds one where it launches its kernel and nowhere else, holding
 #: COUNT_LOCK (the pipelines launch from several threads at once)
 LAUNCHES = collections.Counter()
+#: the same launches by (kernel name, index of the card launched on)
+DEVICE_LAUNCHES = collections.Counter()
 COUNT_LOCK = threading.Lock()
 _BUILD_LOCK = threading.Lock()
 

@@ -49,9 +49,10 @@ W1_KSTEPS = STAGE_FLOATS // (2 * 8 * CHUNK)
 W1_STAGES = CHANNELS * UNFOLD // (8 * W1_KSTEPS)
 CHUNK_STAGES = W1_STAGES + CHUNK // 16
 
-#: launches of the kernel by the width W of its input, counted where
-#: `_build.LAUNCHES` counts them (the path's width mix)
+#: launches of the kernel by the width W of its input, and by its (N, W),
+#: counted where `_build.LAUNCHES` counts them (the path's width mix)
 WIDTH_LAUNCHES = collections.Counter()
+SHAPE_LAUNCHES = collections.Counter()
 
 
 def fused_char_head_reference(x, w1, w2, w3, precision='highest'):
@@ -225,5 +226,7 @@ def fused_char_head(x, head):
     _build.check(code, NAME)
     with _build.COUNT_LOCK:
         _build.LAUNCHES[NAME] += 1
+        _build.DEVICE_LAUNCHES[(NAME, dev.index)] += 1
         WIDTH_LAUNCHES[W] += 1
+        SHAPE_LAUNCHES[(N, W)] += 1
     return out

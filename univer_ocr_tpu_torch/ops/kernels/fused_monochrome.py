@@ -101,5 +101,6 @@ def fused_monochrome(x, weights):
     _build.check(code, NAME)
     with _build.COUNT_LOCK:
         _build.LAUNCHES[NAME] += 1
+        _build.DEVICE_LAUNCHES[(NAME, x.device.index)] += 1
         SHAPE_LAUNCHES[(B, H, W)] += 1
     return out
