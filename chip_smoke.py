@@ -76,6 +76,24 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            must receive message, info and every DASHBOARD_TYPES type;
            and `python -m univer_ocr_tpu_torch predict PAGE.npy` in a
            subprocess, its printed text equal to predict() in process
+  groundtruth_path
+           ground truth and the accuracy entry on the eval corpus's 8
+           pages with all 17 layers (fixtures/eval_layers.npz):
+           interpret() of each page equal to JAX's stored dict;
+           eval_accuracy.main
+           (`--pages`, the serving default in 'bf16', min-run 4) twice,
+           the second timed (pages/s), its score within GATE_SCORE_TOL of
+           JAX's and equal to evaluation.score_weights in the same call,
+           both kernels launched; eval_accuracy.main_gt_crops (the Char
+           model on crops cut from the ground-truth masks) in 'highest'
+           and 'bf16', each page's lines against JAX's stored lines
+           (GT_CROP_SIMILARITY), ms per page, the Char head launched and
+           held to its plain version at every shape it was given; and the
+           feed: with the card initialised, a DataGenerator of 2 spawned
+           workers replaying the fixture's pages delivers 2 x FEED_QUEUE
+           pages, each equal to the fixture's, and stop() ends its
+           processes within FEED_STOP_S.  Launch counts from 0 just
+           before each run, printed by kernel and shape
   train_path
            training (univer_ocr_tpu_torch.models.train) from the committed
            checkpoint on the training fixture's 3 pages
@@ -175,7 +193,9 @@ run, and the Char head's times there are means per launch over that
 run's width mix (`WIDTH_LAUNCHES`), with each width's own numbers beside
 them.  `launches_by_path` gives each path's count (each path's run
 starts with the counts at 0; `serve_path` counts the web app's
-requests, `mesh_host` and `mesh_fused` the sharded pipelines' runs),
+requests, `groundtruth_eval` the accuracy entry's timed run,
+`groundtruth_gt_crops_highest` and `_bf16` the ground-truth crops,
+`mesh_host` and `mesh_fused` the sharded pipelines' runs),
 and the Char head's `host_path`,
 `device_path` and `tables_path` entries its times over those paths'
 mixes.  Plain versions run with TF32 off (full float32).
@@ -282,6 +302,16 @@ DASHBOARD_TYPES = {'reset', 'generating_data', 'training', 'validating',
                    'forward_backward'}
 #: sequential /ocr requests timed at the serving page
 SERVE_REPS = 8
+#: the eval corpus with all 17 layers, JAX's interpret of each page and
+#: JAX's ground-truth-crop texts (tests/test_torch_groundtruth_fixture.py)
+EVAL_LAYERS = ROOT / 'univer_ocr_tpu_torch' / 'fixtures' / 'eval_layers.npz'
+#: each page's ground-truth-crop text against JAX's, per precision: at
+#: least this similarity in 'highest', above it in 'bf16'
+GT_CROP_SIMILARITY = {'highest': 0.99, 'bf16': 0.9}
+#: items the feed's queue holds in groundtruth_path
+FEED_QUEUE = 4
+#: seconds DataGenerator.stop() may take to end its processes
+FEED_STOP_S = 5.0
 #: logical 'data' shards of mesh_path's mesh on a machine with one card
 MESH_SHARDS = 4
 #: a mesh training step's losses and gradients against the unsharded
@@ -1601,6 +1631,173 @@ def serve_path(card, mono_prep, mono_w, rng):
     return launches, mono_err
 
 
+def groundtruth_path(params, committed, char_prep, char_w, rng):
+    """Phase groundtruth_path: ground truth and the accuracy entry on the
+    card, from fixtures/eval_layers.npz (the eval corpus's 8 pages with
+    all 17 layers; the card has no Pillow to render them).
+
+      * interpret() of every page must equal JAX's stored dict;
+      * eval_accuracy.main through the serving default in 'bf16' with the
+        decode at min-run 4 (`--pages`): its score within GATE_SCORE_TOL
+        of JAX's stored score of the corpus and equal to
+        evaluation.score_weights in the same call; both kernels launched;
+      * eval_accuracy.main_gt_crops in 'highest' and 'bf16': each page's
+        lines against JAX's stored ones (GT_CROP_SIMILARITY); the Char
+        head launched, and held to its plain version at every shape it
+        was given (CHAR_TOL);
+      * the feed: with the card initialised, a DataGenerator of 2 spawned
+        workers replaying the fixture's pages delivers 2 x FEED_QUEUE
+        items, each its named page, and stop() ends both within
+        FEED_STOP_S.
+    Returns the launches by run and the Char head's largest error."""
+    from univer_ocr_tpu_torch import eval_accuracy
+    from univer_ocr_tpu_torch.interpreter import interpret
+    from univer_ocr_tpu_torch.models.datasets import encode_layers
+    from univer_ocr_tpu_torch.models.evaluation import (eval_corpus,
+                                                        score_weights)
+    from univer_ocr_tpu_torch.models.train_data_generator import (
+        DataGenerator, replay_pages)
+    from univer_ocr_tpu_torch.ops import kernels
+    from univer_ocr_tpu_torch.ops.kernels import LAUNCHES, char_head
+    from univer_ocr_tpu_torch.ops.kernels.fused_monochrome import (
+        SHAPE_LAUNCHES as MONO_SHAPES)
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+
+    def quiet(*args):
+        pass
+
+    with np.load(EVAL_LAYERS) as f:
+        n_pages = int(f['n_pages'])
+        stored = {key: json.loads(str(f[key])) for key in
+                  ('truths', 'gt_crops_highest', 'gt_crops_bf16')}
+    with np.load(EVAL_FIXTURE) as f:
+        jax_score = json.loads(str(f['score']))['concat']
+    pages = eval_accuracy.load_layer_pages(EVAL_LAYERS, n_pages)
+
+    t0 = time.perf_counter()
+    truths = [interpret(page) for page in pages]
+    interpret_s = time.perf_counter() - t0
+    equal = [truth == {tuple(k): text for k, text in want}
+             for truth, want in zip(truths, stored['truths'])]
+    print(f'groundtruth_path interpret: {sum(equal)}/{n_pages} pages equal '
+          f'JAX\'s, {sum(map(len, truths))} lines, {interpret_s:.3f} s',
+          flush=True)
+    if not all(equal):
+        raise AssertionError(f'groundtruth_path: interpret differs from '
+                             f'JAX\'s on pages {equal}')
+
+    def counted(fn):
+        """fn() with the launch counts from 0 just before it; returns
+        (its result, seconds, launches, Char head shapes, Monochrome
+        shapes)."""
+        LAUNCHES.clear()
+        char_head.SHAPE_LAUNCHES.clear()
+        MONO_SHAPES.clear()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - start, dict(LAUNCHES),
+                dict(sorted(char_head.SHAPE_LAUNCHES.items())),
+                dict(sorted(MONO_SHAPES.items())))
+
+    launches = {}
+    # the accuracy entry: the serving default on the corpus, twice (the
+    # first builds the pipeline's programs and workspaces)
+    for run in ('first', 'timed'):
+        score, eval_s, launches['groundtruth_eval'], eval_chars, eval_mono = \
+            counted(lambda: eval_accuracy.main(
+                n_pages, collapse=4, chunk=CHUNK, pages_path=EVAL_LAYERS,
+                weights=committed, device='cuda', log=quiet))
+        print(f'groundtruth_path eval_accuracy ({run}): concat '
+              f'{score["concat"]:.6f}, canonical {score["canonical"]:.6f}, '
+              f'matched {score["matched"]:.6f}, {eval_s:.3f} s, '
+              f'{n_pages / eval_s:.3f} pages/s', flush=True)
+    print(f'groundtruth_path eval_accuracy launches: '
+          f'{launches["groundtruth_eval"]}; fused_char_head by (N, W): '
+          f'{ {str(k): v for k, v in eval_chars.items()} }; '
+          f'fused_monochrome by (B, H, W): '
+          f'{ {str(k): v for k, v in eval_mono.items()} }', flush=True)
+    for name in ('fused_monochrome', 'fused_char_head'):
+        if launches['groundtruth_eval'].get(name, 0) < 1:
+            raise AssertionError(f'{name} did not launch in eval_accuracy')
+    gate = score_weights(committed, *eval_corpus(n_pages), collapse=4,
+                         chunk=CHUNK, device='cuda')
+    print(f'groundtruth_path score_weights: concat {gate["concat"]:.6f}; '
+          f'JAX\'s {jax_score:.6f}', flush=True)
+    if gate != score:
+        raise AssertionError('groundtruth_path: eval_accuracy and '
+                             'score_weights disagree')
+    if abs(score['concat'] - jax_score) > GATE_SCORE_TOL:
+        raise AssertionError(f'groundtruth_path: score {score["concat"]} '
+                             f'against JAX\'s {jax_score}')
+
+    # the Char model alone on ground-truth crops
+    gt_shapes = Counter()
+    gt_ms = {}
+    for precision, bar in GT_CROP_SIMILARITY.items():
+        key = f'groundtruth_gt_crops_{precision}'
+        (_, texts), gt_s, launches[key], shapes, _ = counted(
+            lambda: eval_accuracy.main_gt_crops(
+                n_pages, precision=precision, pages_path=EVAL_LAYERS,
+                weights=params, device='cuda', log=quiet))
+        gt_ms[precision] = 1e3 * gt_s / n_pages
+        gt_shapes.update(shapes)
+        ratios = [difflib.SequenceMatcher(
+            None, '\n'.join(want), '\n'.join(got), autojunk=False).ratio()
+            for got, want in zip(texts, stored[f'gt_crops_{precision}'])]
+        print(f'groundtruth_path gt-crops {precision}: {gt_ms[precision]:.3f}'
+              f' ms per page, {sum(map(len, texts))} lines, similarity to '
+              f'JAX\'s per page {[round(r, 6) for r in ratios]}, launches '
+              f'{launches[key]}, fused_char_head by (N, W) '
+              f'{ {str(k): v for k, v in shapes.items()} }', flush=True)
+        if launches[key].get('fused_char_head', 0) < 1:
+            raise AssertionError(f'fused_char_head did not launch on the '
+                                 f'{precision} ground-truth crops')
+        if min(ratios) < bar or (precision == 'bf16' and min(ratios) == bar):
+            raise AssertionError(f'groundtruth_path gt-crops {precision}: '
+                                 f'similarity {min(ratios)} to JAX\'s')
+    err = 0.0
+    with backend_flags('highest'):
+        for n, width in sorted(gt_shapes):
+            x = char_inputs(params, rng, n, width)
+            err = max(err, compare(
+                f'fused_char_head {(n, width, 64)} (ground-truth crops)',
+                kernels.fused_char_head(x, char_prep),
+                kernels.fused_char_head_reference(x, *char_w), CHAR_TOL))
+
+    # the feed, spawned beside the live CUDA context
+    torch.zeros(1, device='cuda')
+    with np.load(EVAL_LAYERS) as f:
+        names = json.loads(str(f['layer_names']))
+        layers = f['layers']
+    feed = DataGenerator(queue_size=FEED_QUEUE, generator_func=replay_pages,
+                         func_args=(str(EVAL_LAYERS),), workers=2, seed=0)
+    t0 = time.perf_counter()
+    feed.start()
+    try:
+        items = [feed.get_data() for _ in range(2 * FEED_QUEUE)]
+        feed_s = time.perf_counter() - t0
+    finally:
+        t1 = time.perf_counter()
+        feed.stop()
+        stop_s = time.perf_counter() - t1
+    alive = [proc.is_alive() for proc in feed.workers]
+    for index, encoded in items:
+        want = encode_layers(dict(zip(names, layers[index])))
+        if sorted(encoded) != sorted(want) or not all(
+                np.array_equal(encoded[t], want[t]) for t in want):
+            raise AssertionError(f'groundtruth_path: the feed\'s page '
+                                 f'{index} differs from the fixture\'s')
+    print(f'groundtruth_path feed: {len(items)} items (pages '
+          f'{[index for index, _ in items]}) in {feed_s:.3f} s from 2 '
+          f'spawned workers, stop() {stop_s:.3f} s, alive after {alive}',
+          flush=True)
+    if len(items) != 2 * FEED_QUEUE or stop_s > FEED_STOP_S or any(alive):
+        raise AssertionError('groundtruth_path: the feed did not deliver '
+                             'and stop')
+    return launches, err
+
+
 def mesh_devices():
     """The mesh of phase mesh_path: every card when there are 2 or more
     (as many as divide DEVICE_BATCH), else MESH_SHARDS logical shards on
@@ -2215,6 +2412,13 @@ def main():
                 card, mono_prep, mono_w, rng)
             errors['fused_monochrome'] = max(errors['fused_monochrome'],
                                              serve_err)
+
+        with phase('groundtruth_path'):
+            gt_launches, gt_err = groundtruth_path(
+                params, committed, char_prep, char_w, rng)
+            launches.update(gt_launches)
+            errors['fused_char_head'] = max(errors['fused_char_head'],
+                                            gt_err)
 
         with phase('train_path'):
             launches['train_path'] = train_path(expected_fused,

@@ -44,7 +44,7 @@ def test_bool_convert(arg, want):
 
 def test_unknown_module_exits():
     with pytest.raises(SystemExit, match='unknown module'):
-        dispatcher.main('generate_data', 'false')
+        dispatcher.main('no_such_module', 'false')
 
 
 def test_predict_npy_through_the_dispatcher_on_the_cpu(tmp_path):

@@ -2,7 +2,9 @@
 which the port's eval gate scores (models/evaluation.py; the card machine
 can render no pages: it has no Pillow and no fonts).
 
-It holds the JAX package's `build_eval_corpus(8, seed=123)`: the 8 pages
+It holds `build_eval_corpus(8, seed=123)` (the port's, which renders the
+JAX package's pages and truths; tests/test_torch_data_generator.py holds
+it to this file): the 8 pages
 as uint8 (`pages`, 496x736) and their geometric ground truth (`truths`,
 JSON: per page a list of [[paragraph, line], text]), and what the JAX
 package's `score_weights` gives for the committed checkpoint in the
@@ -64,13 +66,14 @@ def test_port_reads_the_corpus_as_jax_renders_it():
 
 
 def generate():
-    """Render the corpus and score the committed checkpoint with JAX."""
+    """Render the corpus with the port and score the committed checkpoint
+    with JAX."""
     import jax
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, str(ROOT))
-    from univer_ocr_tpu.models.evaluation import (build_eval_corpus,
-                                                  score_results)
+    from univer_ocr_tpu.models.evaluation import score_results
     from univer_ocr_tpu.models.pipeline import OCRPipeline
+    from univer_ocr_tpu_torch.models.evaluation import build_eval_corpus
     from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
 
     pages, truths = build_eval_corpus(N_PAGES, SEED)

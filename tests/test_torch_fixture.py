@@ -1,6 +1,7 @@
 """The committed smoke fixture, univer_ocr_tpu_torch/fixtures/
-smoke_pages.npz: 4 synthetic pages (496x736 uint8, rendered by the JAX
-package's generator from a fixed seed, as bench.py renders its pages),
+smoke_pages.npz: 4 synthetic pages (496x736 uint8, rendered from a fixed
+seed by the port's generator, which draws the pages the JAX package's
+draws, as bench.py renders its pages),
 the text the JAX host cascade gives for each on the CPU (`texts`), the
 text its device cascade gives in the parity mode (`device_texts`:
 `exact_bands=True`, 'highest', `collapse_runs=4`), in the tables mode
@@ -160,6 +161,25 @@ def test_port_reproduces_the_fixture_text_on_cpu():
     assert got == texts
 
 
+def render_pages():
+    """The fixture's pages, rendered by the port's generator: N_PAGES
+    pages of 720x480 drawn from one random.Random(SEED), as uint8 gray
+    (the JAX package's generate_picture after random.seed(SEED) draws
+    the same pages)."""
+    from univer_ocr_tpu_torch.models.train_data_generator import (
+        generate_picture)
+    rng = random.Random(SEED)
+    return np.stack([
+        np.asarray(generate_picture(720, 480, False, rng=rng)['image']
+                   .convert('L'))
+        for _ in range(N_PAGES)])
+
+
+def test_fixture_pages_are_the_ports_render():
+    with np.load(FIXTURE) as f:
+        np.testing.assert_array_equal(render_pages(), f['pages'])
+
+
 def generate():
     """Render the pages and record the text of the JAX host cascade and
     of its device cascade's parity mode, tables mode and serving default
@@ -168,14 +188,9 @@ def generate():
     jax.config.update('jax_platforms', 'cpu')
     sys.path.insert(0, str(ROOT))
     from univer_ocr_tpu.models.pipeline import OCRPipeline
-    from univer_ocr_tpu.models.train_data_generator import generate_picture
     from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
 
-    random.seed(SEED)
-    np.random.seed(SEED)
-    pages = np.stack([
-        np.asarray(generate_picture(720, 480, False)['image'].convert('L'))
-        for _ in range(N_PAGES)])
+    pages = render_pages()
     assert pages.shape == (N_PAGES,) + PAGE_SHAPE[1:3], pages.shape
     with open(DEFAULT_CHECKPOINT) as fp:
         weights = json.load(fp)

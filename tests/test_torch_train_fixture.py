@@ -2,10 +2,11 @@
 train_pages.npz, which chip_smoke.py's `train_path` phase trains on (the
 card machine can render no pages: it has no Pillow and no fonts).
 
-It holds 3 synthetic pages rendered by the JAX package's generator from a
-fixed seed at the corpus size (720x480, 496x736 after the /16 padding),
-each with its 14 layers as uint8 in LAYER_NAMES order (`train`: 2 pages,
-`validation`: 1, `layer_names`), and in `reference` the JAX package's
+It holds 3 synthetic pages rendered by the port's generator (the JAX
+package's draws the same pages) from a fixed seed at the corpus size
+(720x480, 496x736 after the /16 padding), each with its 14 layers as
+uint8 in LAYER_NAMES order (`train`: 2 pages, `validation`: 1,
+`layer_names`), and in `reference` the JAX package's
 numbers for a fixed run of every curriculum stage from the committed
 checkpoint, op by op (`jax.disable_jit`), in float32 on the CPU: for each
 stage, `Adam(lr)` of CURRICULUM, `model_system.train` on train pages 0
@@ -121,6 +122,27 @@ def _record_steps(system, log, page):
                 setattr(model, phase, step)
 
 
+def render_pages():
+    """The fixture's 3 pages with their 14 layers, rendered by the port's
+    generator from one random.Random(SEED) (the JAX package's render_page
+    after random.seed(SEED) draws the same pages)."""
+    from univer_ocr_tpu_torch.models.constants import LAYER_NAMES_PLAIN
+    from univer_ocr_tpu_torch.models.train_data_generator import render_page
+    rng = random.Random(SEED)
+    pages = []
+    for _ in range(3):
+        raw = render_page(720, 480, rng=rng)
+        pages.append(np.stack([np.asarray(raw[name].convert('L'))
+                               for name in LAYER_NAMES_PLAIN], axis=-1))
+    return np.stack(pages)
+
+
+def test_fixture_pages_are_the_ports_render():
+    with np.load(FIXTURE) as f:
+        np.testing.assert_array_equal(
+            render_pages(), np.concatenate([f['train'], f['validation']]))
+
+
 def generate():
     """Render the pages and record the JAX reference run."""
     import jax
@@ -130,19 +152,11 @@ def generate():
     from univer_ocr_tpu.models import model as jmodel
     from univer_ocr_tpu.models.constants import LAYER_NAMES_PLAIN
     from univer_ocr_tpu.models.train import CURRICULUM
-    from univer_ocr_tpu.models.train_data_generator import (encode_layers,
-                                                            render_page)
+    from univer_ocr_tpu.models.train_data_generator import encode_layers
     from univer_ocr_tpu.nn.optimizers import Adam
     from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
 
-    random.seed(SEED)
-    np.random.seed(SEED)
-    pages = []
-    for _ in range(3):
-        raw = render_page(720, 480)
-        pages.append(np.stack([np.asarray(raw[name].convert('L'))
-                               for name in LAYER_NAMES_PLAIN], axis=-1))
-    pages = np.stack(pages)
+    pages = render_pages()
     assert pages.shape == (3,) + PAGE + (14,), pages.shape
 
     def get(idx, layer_tags=None):

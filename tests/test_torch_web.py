@@ -114,7 +114,7 @@ def test_index(server):
     assert 'text/html' in ctype
 
 
-@pytest.mark.parametrize('path', ['/chars', '/train', '/ocr'])
+@pytest.mark.parametrize('path', ['/chars', '/train', '/ocr', '/fonts'])
 def test_routes(server, path):
     status, ctype, body = get(server, path)
     assert status == 200
@@ -130,11 +130,12 @@ def test_static(server, path, ctype):
     assert status == 200 and ctype in got and body
 
 
-@pytest.mark.parametrize('path', ['/nope', '/view_layers/raw', '/fonts',
-                                  '/static/../app.py'])
+@pytest.mark.parametrize('path', ['/nope', '/view_layers/nope',
+                                  '/image/nope/image', '/static/../app.py'])
 def test_404(server, path):
-    """Unknown paths, the routes whose back ends are not ported, and
-    paths out of the static directory."""
+    """Unknown paths, a demo mode that does not exist (answered before
+    the demo page is rendered), and paths out of the static
+    directory."""
     with pytest.raises(urllib.error.HTTPError) as err:
         urllib.request.urlopen(_url(server, path), timeout=10)
     assert err.value.code == 404

@@ -1,6 +1,7 @@
-"""Host CV between the cascade's models (a numpy/scipy copy of the parts
-of univer_ocr_tpu/interpreter/interpreter.py that the host cascade and
-the trainer's crop components call).
+"""Host CV between the cascade's models and the ground-truth decoder (a
+numpy/scipy copy of the parts of univer_ocr_tpu/interpreter/
+interpreter.py that the host cascade, the trainer's crop components and
+the accuracy tools call).
 
 Connected components use `scipy.ndimage.label`, which the JAX package's
 native CCL matches exactly, and rotations use `ndimage.rotate`, as the
@@ -8,6 +9,9 @@ JAX package does by default; so no native code is needed here.  The
 crop stages fan out over a thread pool (the JAX package's default
 backend): their hot loops are numpy and scipy, which release the
 interpreter lock.
+
+`ndimage.find_objects` takes integer labels only on newer scipy, so
+every bounding box of a boolean mask goes through `bbox`.
 """
 
 import os
@@ -114,6 +118,20 @@ def _nearest(anchors, candidates):
     return d.argmin(axis=1)
 
 
+def rearrange_points(points_top, points_center, points_bottom):
+    """For every center-band point pick the nearest top and bottom points
+    (one distance-matrix argmin per side)."""
+    near_top = _nearest(points_center, points_top)
+    near_bottom = _nearest(points_center, points_bottom)
+    new_top = [points_top[i] for i in near_top]
+    new_bottom = [points_bottom[i] for i in near_bottom]
+    return new_top, points_center, new_bottom
+
+
+def get_center_of_mass(lines_top, lines_bottom):
+    return _mask_centers(lines_top), _mask_centers(lines_bottom)
+
+
 def _orientation_code(dy, dx):
     """Text rotation in {None, 90, 180, 270} from the top->bottom band
     displacement (dy, dx).
@@ -162,6 +180,111 @@ def rearrange_lines(lines_top, lines_bottom):
     return ([lines_top[i] for i in order_top],
             [lines_bottom[i] for i in order_bottom],
             rotation)
+
+
+def get_sort_ids(center, vector, array):
+    """Order points for reading: split by the sign of the pseudoscalar
+    product with `vector` (which side of the line through `center`), then
+    by distance: far to near on the non-positive side, near to far on the
+    positive side."""
+    if len(array) == 0:
+        return []
+    rel = np.asarray(array, dtype=float) - np.asarray(center, dtype=float)
+    cross = vector[1] * rel[:, 0] - rel[:, 1] * vector[0]
+    dist = np.linalg.norm(rel, axis=1)
+    left = np.nonzero(cross <= 0)[0]
+    right = np.nonzero(cross > 0)[0]
+    left = left[np.argsort(-dist[left], kind='stable')]
+    right = right[np.argsort(dist[right], kind='stable')]
+    return np.concatenate([left, right]).tolist()
+
+
+def get_letter_sort_ids(cm_top, cm_bottom, letter_positions):
+    return get_sort_ids(cm_bottom, cm_top - cm_bottom, letter_positions)
+
+
+def get_line_sort_ids(cm_tops, cm_bottoms, cm_centers):
+    up = cm_tops[0] - cm_bottoms[0]
+    along = np.array((up[1], -up[0]))     # 90 degrees: reading direction
+    return get_sort_ids(cm_bottoms[0], along, cm_centers)
+
+
+def iter_by_indices(iterable, indices):
+    return (iterable[index] for index in indices)
+
+
+def _char_anchor_table(char_full_box_layer, bits_layers):
+    """Every character anchor, decoded up front: each char's full box
+    collapses to its center pixel, and the 8 bit planes are sampled at
+    every center in one gather.  Returns the (K, 2) anchor coordinates,
+    their (K,) decoded ids and an (H, W) map from pixel to anchor index
+    (-1 elsewhere)."""
+    boxes = ndimage.find_objects(ndimage.label(char_full_box_layer)[0])
+    anchors = np.array(
+        [((y.start + y.stop - 1) // 2, (x.start + x.stop - 1) // 2)
+         for y, x in boxes], dtype=np.int64).reshape(-1, 2)
+    bits_at = bits_layers[:, anchors[:, 0], anchors[:, 1]].T    # (K, 8)
+    ids = decode_bits_to_ids(bits_at)
+    index_map = np.full(char_full_box_layer.shape, -1, dtype=np.int64)
+    index_map[anchors[:, 0], anchors[:, 1]] = np.arange(len(anchors))
+    return anchors, ids, index_map
+
+
+def interpret(layers):
+    """Decode the text of every (paragraph, line) from a page's
+    ground-truth mask layers ({name: PIL image or (H, W) uint8 array});
+    no model is involved.  Returns {(paragraph, line): text}.
+
+    Every character anchor is located and decoded once, then each line
+    selects and orders its own anchors.  Letters are ordered by the
+    line's own band centers (`cm_*[line_id]`), as the JAX package does.
+    """
+    paragraph_layer = np.array(layers['paragraph'])
+    band = {name: np.array(layers[f'line_{name}'])
+            for name in ('top', 'center', 'bottom')}
+    not_spacing = ~(np.array(layers['letter_spacing']) > 0)
+    char_boxes = np.array(layers['char_full_box']) & not_spacing
+    bits_layers = np.array([
+        np.array(layers[f'bit_{i}']) > 0
+        for i in range(BITS_COUNT)
+    ]) & not_spacing
+
+    anchors, char_ids, anchor_index = _char_anchor_table(char_boxes,
+                                                         bits_layers)
+    result = {}
+    for p_id, paragraph_mask in enumerate(label_layer(paragraph_layer)):
+        p_y, p_x = bbox(paragraph_mask)
+        start = np.array([p_y.start, p_x.start])
+        clipped = paragraph_mask[p_y, p_x]
+        bands = {name: label_layer(clipped * band[name][p_y, p_x])
+                 for name in ('top', 'center', 'bottom')}
+        cm_top, cm_center, cm_bottom = rearrange_points(
+            _mask_centers(bands['top']),
+            _mask_centers(bands['center']),
+            _mask_centers(bands['bottom']))
+
+        for l_id, line_id in enumerate(
+                get_line_sort_ids(cm_top, cm_bottom, cm_center)):
+            line = bands['center'][line_id]
+            s_y, s_x = bbox(line)
+            window = anchor_index[start[0] + s_y.start:start[0] + s_y.stop,
+                                  start[1] + s_x.start:start[1] + s_x.stop]
+            ks = window[line[s_y, s_x] & (window >= 0)]
+            positions = anchors[ks]
+            order = get_letter_sort_ids(
+                start + cm_top[line_id], start + cm_bottom[line_id],
+                positions)
+            text = []
+            for k in (ks[i] for i in order):
+                if char_ids[k] >= len(CHARS):
+                    y, x = anchors[k]
+                    print(f'Could not recognize character at position '
+                          f'[{x};{y}]')
+                    continue
+                text.append(CHARS[char_ids[k]])
+            result[(p_id, l_id)] = ''.join(text)
+
+    return result
 
 
 def crop_and_rotate_single_paragraph(mask, arrays, find_rotation=True, eps=1.0):

@@ -1,13 +1,15 @@
-"""Datasets of training pages (the parts of univer_ocr_tpu/models/
-datasets.py that training needs).
+"""Datasets of training pages and the array <-> image codecs
+(univer_ocr_tpu/models/datasets.py).
 
 A dataset is a sized source of pages; `get(idx, layer_tags)` returns the
 page's layers as `{tag: (1, H, W, C) float64 array in [0, 1]}`, channels
 in LAYER_NAMES order: the uint8 planes over 255.0, exactly as the JAX
-package encodes them.  Two sources: the PNG corpus on disk (Pillow is
-imported where a file is read) and an array of uint8 layers, such as the
-committed training fixture, which needs no Pillow.  Random draws take an
-explicit `random.Random`.
+package encodes them.  Three sources: the PNG corpus on disk, pages
+rendered on demand (`GeneratorDataset`), and an array of uint8 layers,
+such as the committed training fixture, which needs no Pillow.  Pillow
+is imported where a file is read, a page rendered or an image made, so
+the module imports without it.  Random draws take an explicit
+`random.Random`.
 """
 
 import json
@@ -25,6 +27,59 @@ def encode_X(image):
     encodes a page."""
     plane = np.asarray(image)
     return plane.reshape((1,) + plane.shape + (1,)) / 255.0
+
+
+def decode_X(X):
+    """An input tensor (or a list of one) -> a PIL L image."""
+    from PIL import Image
+    if isinstance(X, list):
+        X = X[0]
+    grid = np.asarray(X)[0, :, :, 0] * 255
+    return Image.fromarray(grid.astype(np.uint8))
+
+
+def encode_ys(images):
+    """A flat list of per-layer PIL images (LAYER_TAGS order) -> a list of
+    (1, H, W, C) float targets, one per tag."""
+    ys = []
+    flat = iter(images)
+    for tag in LAYER_TAGS:
+        group = [np.asarray(next(flat)) for _ in LAYER_NAMES[tag]]
+        ys.append(np.stack(group, axis=-1)[None] / 255.0)
+    return ys
+
+
+def _channel_images(grid, normalize):
+    """One 2D float map -> (raw PIL image, thresholded-at-mean image)."""
+    from PIL import Image
+    grid = np.asarray(grid, np.float64)
+    if normalize:
+        grid = grid - grid.min()
+        peak = grid.max()
+        if not np.isclose(peak, 0):
+            grid = grid / peak
+    binary = (grid >= grid.mean()).astype(np.uint8) * 255
+    return (Image.fromarray((grid * 255).astype(np.uint8)),
+            Image.fromarray(binary))
+
+
+def decode_y(y, normalize=False, four_dims=True):
+    """Prediction channels -> (images, thresholded-at-mean images)."""
+    y = np.asarray(y)
+    channels = ([y[0, :, :, i] for i in range(y.shape[-1])]
+                if four_dims else [y])
+    decoded = [_channel_images(c, normalize) for c in channels]
+    return [d[0] for d in decoded], [d[1] for d in decoded]
+
+
+def decode_ys(ys, normalize=False):
+    """Per-tag predictions -> flat (images, thresholded images) lists."""
+    pred_images, thresholded_images = [], []
+    for y in ys:
+        raw, binary = decode_y(y, normalize)
+        pred_images += raw
+        thresholded_images += binary
+    return pred_images, thresholded_images
 
 
 def get_layer_names(layer_tags=None):
@@ -88,6 +143,24 @@ class Dataset(BaseDataset):
                 for name in LAYER_NAMES_PLAIN if name in keep}
 
 
+class GeneratorDataset(BaseDataset):
+    """Pages rendered on demand (no corpus on disk needed), each from the
+    dataset's `rng` (a `random.Random`) in the order they are asked for."""
+
+    def __init__(self, size, width, height, rng):
+        super().__init__(size)
+        self.width = width
+        self.height = height
+        self.rng = rng
+
+    def get_planes(self, idx, layer_tags=None):
+        from .train_data_generator import render_page
+        picture = render_page(self.width, self.height, rng=self.rng)
+        keep = set(get_layer_names(layer_tags))
+        return {name: np.asarray(img.convert('L'))
+                for name, img in picture.items() if name in keep}
+
+
 class ArrayDataset(BaseDataset):
     """Pages held as one (N, H, W, L) uint8 array whose last axis holds
     the layers named by `layer_names`."""
@@ -126,8 +199,19 @@ def load_page_arrays(path=TRAIN_FIXTURE):
                 ArrayDataset(f['validation'], names))
 
 
-def png_corpus():
-    """(train, validation) Datasets of the PNG corpus under
-    generated_files/data."""
-    return (Dataset(TRAIN_DATASET_LENGTH, TRAIN_DATA_PATH),
-            Dataset(VALIDATION_DATASET_LENGTH, VALIDATION_DATA_PATH))
+def _corpus_or_generator(length, dirpath, rng):
+    """The PNG corpus on disk once `generate_data` has written it;
+    otherwise pages rendered on demand at the corpus's size (720x480),
+    so that training works from a clean checkout."""
+    if (dirpath / '0_image.png').exists():
+        return Dataset(length, dirpath)
+    return GeneratorDataset(length, 720, 480, rng)
+
+
+def train_dataset(rng):
+    return _corpus_or_generator(TRAIN_DATASET_LENGTH, TRAIN_DATA_PATH, rng)
+
+
+def validation_dataset(rng):
+    return _corpus_or_generator(VALIDATION_DATASET_LENGTH,
+                                VALIDATION_DATA_PATH, rng)

@@ -6,21 +6,25 @@ JAX rounds improved every stage's validation loss while the decoded text
 collapsed), so a stage result may replace a checkpoint only when the text
 it decodes does not regress:
 
-  * `eval_corpus` — the seeded fixed corpus: the JAX package renders it
-    with `build_eval_corpus(8, seed=123)` (Pillow and fonts, which the
-    card machine lacks), and it is read here from the committed fixture
-    fixtures/eval_pages.npz, with its geometric ground truth;
+  * `build_eval_corpus` — the seeded fixed corpus, rendered (Pillow and
+    fonts, which the card machine lacks) with its geometric ground truth
+    (interpreter.interpret on the mask layers); the same pages and truths
+    as the JAX package's `build_eval_corpus`;
+  * `eval_corpus` — that corpus at its defaults (8 pages, seed 123), read
+    from the committed fixture fixtures/eval_pages.npz: the card's source;
   * `score_weights` — decoded-text similarity of a weight dict through the
     serving OCRPipeline configuration;
   * `make_eval_gate` — the save-time gate of both trainers.
 """
 
 import json
+import random
 from difflib import SequenceMatcher
 from pathlib import Path
 
 import numpy as np
 
+from ..interpreter import interpret
 from ..nn.checkpoint import read_weights
 from ..primitives import SIMILAR_CHARS_PAIRS_LIST
 
@@ -37,6 +41,34 @@ _CANON = {ru: en for ru, en in SIMILAR_CHARS_PAIRS_LIST}
 
 def canonical(text):
     return ''.join(_CANON.get(c, c) for c in text)
+
+
+def render_eval_pages(n_pages=8, seed=123, width=720, height=480):
+    """The corpus's pages as raw {layer_name: PIL image} dicts: each page
+    places paragraphs in rounds of 100 attempts until one lands, then is
+    padded to /16, every draw from one `random.Random(seed)`."""
+    from ..image_generator import LayeredImage, random_font, random_text
+    rng = random.Random(seed)
+    pages = []
+    for _ in range(n_pages):
+        img = LayeredImage(width, height, (255, 255, 255, 255), rng)
+        while img.paragraphs_added == 0:
+            for _ in range(100):
+                img.add_paragraph(random_text(rng), random_font(rng, 12, 36))
+        img.make_divisible_by(16, 16)
+        pages.append(img.get_raw())
+    return pages
+
+
+def build_eval_corpus(n_pages=8, seed=123, width=720, height=480):
+    """Seeded pages and their geometric ground truth: ([(1, H, W, 1)
+    float32 page], [{(paragraph, line): text}])."""
+    pages, truths = [], []
+    for raw in render_eval_pages(n_pages, seed, width, height):
+        truths.append(interpret(raw))
+        gray = np.asarray(raw['image'].convert('L'))
+        pages.append((gray / 255.0).astype(np.float32)[None, :, :, None])
+    return pages, truths
 
 
 def eval_corpus(n_pages=8, seed=123, path=EVAL_FIXTURE):

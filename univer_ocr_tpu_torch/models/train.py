@@ -4,16 +4,20 @@ curriculum MONOCHROME -> PARAGRAPH -> LINE -> CHAR -> ALL over
 merge-saved into a checkpoint, and the run's telemetry to the console or,
 after `init_emitter`, to the training dashboard.
 
-    python -m univer_ocr_tpu_torch.models.train [--cpu] [--data NPZ|DIR]
+    python -m univer_ocr_tpu_torch.models.train [--cpu]
+        [--data NPZ|DIR|generate]
         [--weights-in JSON] [--weights-out JSON] [--epochs N]
         [--train-size N] [--val-size N] [--seed N] [--batched]
         [--batch N] [--predicted[=mix]] [--eval-gate]
 
 `--data` is a training-pages .npz (default: the committed fixture,
 univer_ocr_tpu_torch/fixtures/train_pages.npz: 2 pages to train, 1 to
-validate) or the directory of a PNG corpus with `train/` and
-`validation/` (the JAX package's `run.py generate_data` writes one under
-generated_files/data; reading it needs Pillow).  Training starts from
+validate), the directory of a PNG corpus with `train/` and
+`validation/` (`python -m univer_ocr_tpu_torch generate_data` writes one
+under generated_files/data; reading it needs Pillow), or `generate`, the
+JAX package's default: that corpus when it exists, else pages rendered on
+demand from `--seed` (needs Pillow and fonts, which the card machine
+lacks).  Training starts from
 `--weights-in` (default: the JAX package's committed checkpoint, which is
 only read) and writes `--weights-out` (default
 generated_files/model_weights_torch.json).  `--epochs` replaces every
@@ -40,7 +44,8 @@ from ..ops.precision import backend_flags
 from ..parallel.mesh import mesh_device
 from ..weights import DEFAULT_CHECKPOINT, refuse_committed
 from .constants import TRAIN_FIXTURE, TRAINED_WEIGHTS_PATH
-from .datasets import Dataset, RandomSelectDataset, load_page_arrays
+from .datasets import (Dataset, RandomSelectDataset, load_page_arrays,
+                       train_dataset, validation_dataset)
 from .dp_train import _STAGE_MODEL, train_model_batched
 from .evaluation import make_eval_gate
 from .model import Modes, make_context_maker, make_model_system
@@ -284,7 +289,10 @@ def main(argv=None):
     parser.add_argument('--cpu', action='store_true',
                         help='run on the CPU instead of the card')
     parser.add_argument('--data', default=str(TRAIN_FIXTURE),
-                        help='training-pages .npz or PNG corpus directory')
+                        help="training-pages .npz, PNG corpus directory, or "
+                             "'generate': the corpus under generated_files/"
+                             "data when it exists, else pages rendered on "
+                             "demand (needs Pillow and fonts)")
     parser.add_argument('--weights-in', default=str(DEFAULT_CHECKPOINT))
     parser.add_argument('--weights-out', default=str(TRAINED_WEIGHTS_PATH))
     parser.add_argument('--epochs', type=int, default=None,
@@ -308,7 +316,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     data = Path(args.data)
-    if data.is_dir():
+    if args.data == 'generate':
+        train = train_dataset(random.Random(args.seed))
+        validation = validation_dataset(random.Random(args.seed + 1))
+    elif data.is_dir():
         train, validation = (Dataset(len(list(d.glob('*_image.png'))), d)
                              for d in (data / 'train', data / 'validation'))
     else:

@@ -8,7 +8,13 @@ app.py) on the stdlib server.
     The body is an image file (decoded with Pillow, imported in the
     handler) or a `.npy` array of uint8 gray values, shape (H, W) or
     (1, H, W, 1), which needs no Pillow;
-  * `/`, `/chars`, `/train`, `GET /ocr`: the pages;
+  * `/`, `/chars`, `/fonts`, `/train`, `GET /ocr`: the pages;
+  * the demo page: `/generate_new` draws a new one, `/view_layers/<raw|
+    demo>` shows its layers, `/image/<raw|demo>/<layer>` serves one as a
+    PNG and `/interpret_data` decodes its text from the ground-truth
+    layers (interpreter.interpret).  The page is rendered on first use
+    (image_generator.generate_demo, 1920x1080) with Pillow and fonts;
+    without Pillow these routes answer 503, naming it;
   * WS `/train-ws`: `start` runs the port's trainer (univer_ocr_tpu_torch/
     train.py) in a subprocess that reports back over the same namespace
     and whose output is piped to it; `stop` ends it; the trainer's
@@ -21,6 +27,7 @@ Importing the app imports neither Pillow nor JAX.
 import html
 import io
 import json
+import random
 import subprocess
 import sys
 import threading
@@ -29,6 +36,8 @@ from pathlib import Path
 import numpy as np
 
 from ..device import resolve_device
+from ..fonts import FONTS_LIST
+from ..interpreter import interpret
 from ..models.constants import TRAINED_WEIGHTS_PATH
 from ..models.datasets import encode_X
 from ..primitives import CHARS, encode_char
@@ -45,6 +54,8 @@ OCR_H_MENU = (496, 752, 1008, 1264, 1520)
 OCR_W_MENU = (736, 992, 1248, 1504, 1760, 2016)
 
 NPY_MAGIC = b'\x93NUMPY'
+DEMO_SIZE = (1920, 1080)
+DEMO_MODES = ('raw', 'demo')
 
 
 def serving_weights_path():
@@ -122,15 +133,22 @@ def decode_page(body):
         raise BadPage('body must be an image or a .npy array') from None
 
 
-def create_app(device=None):
+class MissingPillow(RuntimeError):
+    """A demo route ran without Pillow."""
+
+
+def create_app(device=None, demo_seed=None):
     """The web app; its OCR pipelines run on `device` (None: the card,
     raising without one; 'cpu': the host), each with the weights of
     `serving_weights_path()` when it is built (random ones, as the JAX
-    package's, when there is no file).
+    package's, when there is no file).  The demo pages draw from
+    `random.Random(demo_seed)` (None: OS entropy).
     Stop it with `app.shutdown()`, which closes the pipelines."""
     device = resolve_device(device)
     app = App()
     app.device = device
+    demo_rng = random.Random(demo_seed)
+    demo_lock = threading.Lock()
     pipelines = {}
     #: held across get_pipeline + ocr_pages: one request at a time runs
     #: the cascade (ocr_pages sets the process-wide TF32 switches for
@@ -163,6 +181,94 @@ def create_app(device=None):
     @app.route('/train')
     def train(query=None):
         return render_template('train.html')
+
+    @app.route('/fonts')
+    def fonts(query=None):
+        rows = '\n'.join(
+            f'<tr><td>{f.name}</td>'
+            f'<td>{f.normal_path or "—"}</td>'
+            f'<td>{f.bold_path or "—"}</td>'
+            f'<td>{f.italic_path or "—"}</td>'
+            f'<td>{f.bold_italic_path or "—"}</td></tr>'
+            for f in FONTS_LIST)
+        return render_template('fonts.html', rows=rows)
+
+    # ------------------------------------------------------------------
+    # The demo page
+    # ------------------------------------------------------------------
+    def get_demo_data(regenerate=False):
+        """(raw, demo) layers of the demo page, rendered on first use."""
+        with demo_lock:
+            if regenerate or 'demo' not in app.state:
+                try:
+                    import PIL  # noqa: F401
+                except ImportError as exc:
+                    raise MissingPillow(
+                        'the demo page is rendered with Pillow, which is '
+                        f'not installed ({exc})') from None
+                from ..image_generator import generate_demo
+                app.state['demo'] = generate_demo(*DEMO_SIZE, demo_rng)
+            return app.state['demo']
+
+    def demo_route(handler):
+        """A demo route that answers 503, naming Pillow, when it is
+        missing."""
+        def route(*args, **kwargs):
+            try:
+                return handler(*args, **kwargs)
+            except MissingPillow as exc:
+                return (503, 'text/plain; charset=utf-8', str(exc))
+        return route
+
+    def not_found(what):
+        return (404, 'text/plain; charset=utf-8', f'no such {what}')
+
+    @app.route('/generate_new')
+    @demo_route
+    def generate_new(query=None):
+        get_demo_data(regenerate=True)
+        return ('<!DOCTYPE html><meta http-equiv="refresh" '
+                'content="0; url=/">Regenerated, redirecting…')
+
+    @app.route('/view_layers/<mode>')
+    @demo_route
+    def view_layers(mode, query=None):
+        if mode not in DEMO_MODES:
+            return not_found(f'mode {mode!r}')
+        layers = get_demo_data()[DEMO_MODES.index(mode)]
+        checkboxes = '\n'.join(
+            f'<label class="layer-toggle"><input type="checkbox" '
+            f'data-layer="{name}" {"checked" if name == "image" else ""}>'
+            f'{name}</label>'
+            for name in layers)
+        images = '\n'.join(
+            f'<img class="layer" id="layer-{name}" '
+            f'src="/image/{mode}/{name}" '
+            f'style="display:{"block" if name == "image" else "none"}">'
+            for name in layers)
+        return render_template('view_layers.html', mode=mode,
+                               checkboxes=checkboxes, images=images)
+
+    @app.route('/image/<mode>/<type>')
+    @demo_route
+    def image(mode, type, query=None):
+        if mode not in DEMO_MODES:
+            return not_found(f'mode {mode!r}')
+        layers = get_demo_data()[DEMO_MODES.index(mode)]
+        if type not in layers:
+            return not_found(f'layer {type!r}')
+        from ..image_generator import to_bytesio
+        return (200, 'image/png', to_bytesio(layers[type]).read())
+
+    @app.route('/interpret_data')
+    @demo_route
+    def interpret_data(query=None):
+        raw, _ = get_demo_data()
+        rows = '\n'.join(
+            f'<tr><td>{p}</td><td>{l}</td>'
+            f'<td>{html.escape(text)}</td></tr>'
+            for (p, l), text in sorted(interpret(raw).items()))
+        return render_template('interpret_data.html', rows=rows)
 
     # ------------------------------------------------------------------
     # Online OCR endpoint
