@@ -10,7 +10,9 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
   device   the card's name and power limit (nvidia-smi) and torch's name
            for it; no card -> exit 1
   build    one nvcc per univer_ocr_tpu_torch/csrc/*.cu, started together,
-           and one that links them
+           and one that links them; beside them, the g++ of the native
+           host-CV library (csrc/host/univocr_native.cpp), with its
+           seconds
   kernels  each CUDA kernel against its plain PyTorch version, on seeded
            inputs and the committed checkpoint's weights, at the shapes
            the paths give it (the Monochrome block at a chunk's and at
@@ -23,6 +25,16 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
   path     the host-cascade OCRPipeline on the committed fixture's pages
            (one chunk of 8), its text held against the JAX host cascade's
            text stored in the fixture; both kernels must have launched
+  host_native
+           the native CCL (univer_ocr_tpu_torch/native.py) on the masks
+           the host cascade labels: the paragraph masks of the chunk's 8
+           pages (its front) and every Line band channel of the chunk,
+           labels and counts equal to scipy.ndimage.label's exactly; the
+           median ms per call of native against scipy for `label` and for
+           `interpreter.label_layer`, with their sums per chunk; then the
+           chunk through the host cascade with scipy's labels and the
+           native ones in turns (scipy, native, native, scipy), its text
+           JAX's each time, with the host CV stage timers of each run
   device_path
            the device cascade in its parity mode (`device_cascade=True,
            exact_bands=True`, sampler 'gather') on the same pages, its
@@ -113,6 +125,20 @@ Phases, each printed as `phase <name> start` / `phase <name> done <s>`:
            (well-formed text, similarity to the committed checkpoint's
            printed).  Training launches neither kernel (its count must
            stay 0)
+  nn_batteries
+           the NN script batteries on the card: test_identity (each layer
+           on the card against the CPU, forward and input gradient within
+           1e-5, TF32 off) and test_gradients (float64), every check
+           passing; one curriculum page of TRAIN_ALL through the Trainer
+           with ProgressSnapshots.panels as save_pictures_func, on the
+           card and on the CPU at lr 0: the same file names, every panel
+           uint8 of the CPU run's shape; the same page on the card at lr
+           1e-3: a weight moved and every stage's panels of both phases
+           are there, uint8; train_model(save_train_progress=True)
+           with Pillow unimportable must raise, naming it, before a page
+           is read; and `start` of test_identity with use_gpu through the
+           web app's /test-nn-ws must stream the pass counter and the
+           subprocess's exit 0
   batched_train_path
            the batched predicted-crop trainer (models/dp_train.py) and the
            eval gate (models/evaluation.py): each batched stage on the
@@ -208,6 +234,7 @@ last line, which on success is
 import contextlib
 import difflib
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 import json
 import subprocess
 import sys
@@ -314,6 +341,8 @@ FEED_QUEUE = 4
 FEED_STOP_S = 5.0
 #: logical 'data' shards of mesh_path's mesh on a machine with one card
 MESH_SHARDS = 4
+#: host_native: timed calls of each labeller on each mask
+NATIVE_REPS = 5
 #: a mesh training step's losses and gradients against the unsharded
 #: step's ('highest'; mesh_steps), read from an SGD step at this lr: a
 #: power of two far above the weights, so that the update scales the
@@ -1798,6 +1827,297 @@ def groundtruth_path(params, committed, char_prep, char_w, rng):
     return launches, err
 
 
+@contextlib.contextmanager
+def scipy_labels():
+    """Inside the block the port labels with scipy.ndimage.label in place
+    of its native CCL (the comparison of host_native)."""
+    from scipy import ndimage
+    from univer_ocr_tpu_torch import native
+    native_label = native.label
+    native.label = lambda mask: ndimage.label(np.asarray(mask))
+    try:
+        yield
+    finally:
+        native.label = native_label
+
+
+def median_call_ms(fn, args, reps=NATIVE_REPS):
+    """Median ms of one fn(arg) over every arg, each timed REPS times."""
+    times = []
+    for _ in range(reps):
+        for arg in args:
+            t0 = time.perf_counter()
+            fn(arg)
+            times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), float(np.sum(times)) / reps
+
+
+def host_native(card, host, pages, expected):
+    """Phase host_native: the native CCL on the masks the host cascade
+    labels, the paragraph masks of the chunk's 8 pages (its front) and
+    every Line band channel of the chunk, equal to scipy's labels and
+    counts exactly; the median ms per call of each, for `label` and for
+    `label_layer`, and their sums per chunk; then the chunk through the
+    host cascade with scipy's labels and with the native ones in turns
+    (scipy, native, native, scipy), the text JAX's every time, with the
+    host CV stage timers of each run."""
+    from scipy import ndimage
+    from univer_ocr_tpu_torch import interpreter, native
+    from univer_ocr_tpu_torch.utils.profiling import StageTimers
+    mono, para = (t.cpu().numpy()
+                  for t in host.front(host._upload_pages(pages)))
+    if host.quantized_transfers:
+        mono = mono.astype(np.float32) / 255.0
+    crops = [c for i in range(len(pages))
+             for c in host._crop_page(mono[i:i + 1], para[i:i + 1])]
+    # each band channel as plan_paragraph_lines thresholds it before
+    # label_layer
+    bands = [b[:, :, :, c:c + 1] > (
+                 0 if host.quantized_transfers
+                 else 0.5 * (np.mean(b[..., c]) + np.max(b[..., c])))
+             for b in host._run_line_batched(crops)
+             for c in range(b.shape[-1])]
+    para_masks = [p[:, :, 0] > 0 for p in para]
+    band_masks = [b[0, :, :, 0] > np.mean(b) for b in bands]
+    components = []
+    for mask in para_masks + band_masks:
+        got, n = native.label(mask)
+        exp, m = ndimage.label(mask)
+        if n != m or not np.array_equal(got, exp):
+            raise AssertionError(f'host_native: native labels differ from '
+                                 f'scipy\'s on a {mask.shape} mask ({n} '
+                                 f'against {m} components)')
+        components.append(n)
+    print(f'host_native: labels and counts equal scipy\'s on '
+          f'{len(para_masks)} paragraph masks ({sum(components[:8])} '
+          f'components) and {len(band_masks)} band channels of '
+          f'{len(crops)} crops ({sum(components[8:])} components)',
+          flush=True)
+    times = {}
+    for name, masks in (('paragraph', para_masks), ('band', band_masks)):
+        times[f'label {name}'] = {
+            'native': median_call_ms(native.label, masks),
+            'scipy': median_call_ms(ndimage.label, masks)}
+    native_layers = median_call_ms(interpreter.label_layer, bands)
+    with scipy_labels():
+        scipy_layers = median_call_ms(interpreter.label_layer, bands)
+    times['label_layer band'] = {'native': native_layers,
+                                 'scipy': scipy_layers}
+    for key, pair in times.items():
+        print(f'host_native on {card}: {key}: median ms per call native '
+              f'{pair["native"][0]:.4f}, scipy {pair["scipy"][0]:.4f} '
+              f'({pair["scipy"][0] / pair["native"][0]:.2f}x); ms per '
+              f'chunk native {pair["native"][1]:.3f}, scipy '
+              f'{pair["scipy"][1]:.3f}', flush=True)
+    runs = {'scipy': [], 'native': []}
+    for which in ('scipy', 'native', 'native', 'scipy'):
+        with (scipy_labels() if which == 'scipy'
+              else contextlib.nullcontext()):
+            host.timers = StageTimers()
+            t0 = time.perf_counter()
+            results = host.ocr_pages(pages)
+            torch.cuda.synchronize()
+            chunk_ms = 1e3 * (time.perf_counter() - t0)
+            totals = host.timers.totals
+            host.timers = None
+        check_text(f'host_native, {which} labels', results, expected)
+        runs[which].append({
+            'chunk_ms': round(chunk_ms, 3),
+            **{k: round(1e3 * totals.get(k, 0.0), 3)
+               for k in ('host_paragraph_crops', 'host_line_crops')}})
+    print(f'host_native on {card}: the host cascade with scipy\'s labels '
+          f'and with the native ones, in turns, ms per chunk of '
+          f'{CHUNK} (host CV summed over threads): {json.dumps(runs)}',
+          flush=True)
+
+
+class _Untouched:
+    """A dataset whose pages must not be read."""
+
+    def __len__(self):
+        return 1
+
+    def get(self, *args, **kwargs):
+        raise AssertionError('nn_batteries: a page was read')
+
+
+@contextlib.contextmanager
+def without_pillow():
+    """Imports of Pillow fail inside the block, whether or not it is
+    installed."""
+    saved = {name: sys.modules.get(name) for name in ('PIL', 'PIL.Image')}
+    sys.modules.update(dict.fromkeys(saved))
+    try:
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def snapshot_page(device, committed, lr=0.0):
+    """One curriculum page of TRAIN_ALL (the training fixture's first
+    page, validated on its validation page, 1 epoch from the committed
+    checkpoint) with ProgressSnapshots.panels as the Trainer's
+    save_pictures_func: {file name: (dtype, shape)}, the seconds and
+    whether a weight moved.  At lr 0 (the default) the validation sweep
+    predicts with the committed weights too: after a real step the
+    card's weights and the CPU's part (ROADMAP, Char training
+    trajectories), and a predicted crop may then differ by a pixel or
+    two."""
+    import random
+    from univer_ocr_tpu_torch.models.datasets import (RandomSelectDataset,
+                                                      load_page_arrays)
+    from univer_ocr_tpu_torch.models.model import (Modes, make_context_maker,
+                                                   make_model_system)
+    from univer_ocr_tpu_torch.models.train import ProgressSnapshots
+    from univer_ocr_tpu_torch.models.trainer import Trainer
+    from univer_ocr_tpu_torch.nn.optimizers import Adam
+    from univer_ocr_tpu_torch.nn.progress_tracker import BaseProgressTracker
+    from univer_ocr_tpu_torch.ops.precision import backend_flags
+    train, validation = load_page_arrays(TRAIN_FIXTURE)
+    rng = random.Random(0)
+    mode = Modes.TRAIN_ALL
+    optimizer = Adam(lr=lr)
+    system, models, _ = make_model_system(
+        PAGE_SHAPE, optimizer, weights=committed, mode=mode, device=device)
+
+    def weight_sum():
+        return sum(float(np.abs(np.asarray(array, np.float64)).sum())
+                   for model in models.values()
+                   for layer in model.get_weights().values()
+                   for array in layer.values())
+
+    before = weight_sum()
+    snapshots = ProgressSnapshots(mode)
+    panels = {}
+
+    def record(epoch, phase, index, context):
+        for name, panel in snapshots.panels(epoch, phase, index,
+                                            context).items():
+            panels[name] = (str(panel.dtype), panel.shape)
+
+    t0 = time.perf_counter()
+    with backend_flags('highest'):
+        Trainer(system, make_context_maker(mode, device), models,
+                RandomSelectDataset(1, train, rng),
+                RandomSelectDataset(1, validation, rng),
+                progress_tracker=BaseProgressTracker(), optimizer=optimizer,
+                learning_rate_step=0.9, save_pictures_func=record,
+                rng=rng).train(num_epochs=1)
+    if device != 'cpu':
+        torch.cuda.synchronize()
+    return panels, round(time.perf_counter() - t0, 2), weight_sum() != before
+
+
+def nn_batteries(card, committed):
+    """Phase nn_batteries: test_identity on the card against the CPU and
+    test_gradients on the card in float64, every check passing; one
+    curriculum page of TRAIN_ALL with the snapshots' panels as the
+    Trainer's save_pictures_func, on the card and on the CPU at lr 0:
+    the same file names, every panel uint8 of the CPU's shape; at lr 1e-3
+    on the card, a weight moved and every stage's panels of both phases
+    are there; train_model(save_train_progress=True) without Pillow raising, naming
+    it, before any page is read; and `start` of test_identity with use_gpu
+    on the web app's /test-nn-ws, whose output must stream the pass
+    counter and the subprocess's exit 0."""
+    import importlib.util
+    from univer_ocr_tpu_torch.models.model import Modes
+    from univer_ocr_tpu_torch.models.train import train_model
+    from univer_ocr_tpu_torch.nn.test import test_gradients, test_identity
+    from univer_ocr_tpu_torch.web import create_app
+    from univer_ocr_tpu_torch.web.ws_client import FrameReader, WSClient
+    seconds = {}
+    for battery in (test_identity, test_gradients):
+        t0 = time.perf_counter()
+        ok = battery.main(True)
+        seconds[battery.__name__.rsplit('.', 1)[1]] = round(
+            time.perf_counter() - t0, 2)
+        if not (ok and battery.failed == 0 and battery.passed > 0):
+            raise AssertionError(f'nn_batteries: {battery.__name__} failed '
+                                 f'{battery.failed} of '
+                                 f'{battery.passed + battery.failed}')
+    card_panels, seconds['TRAIN_ALL page, card'], _ = snapshot_page(
+        'cuda', committed)
+    cpu_panels, seconds['TRAIN_ALL page, CPU'], _ = snapshot_page(
+        'cpu', committed)
+    stages = sorted({name.split('/')[1] for name in card_panels})
+    print(f'nn_batteries on {card}: TRAIN_ALL page: {len(card_panels)} '
+          f'panels on the card, {len(cpu_panels)} on the CPU, stages '
+          f'{stages}', flush=True)
+    if (card_panels != cpu_panels or len(stages) != 4
+            or any(dtype != 'uint8' for dtype, _ in card_panels.values())):
+        diff = sorted(set(card_panels.items()) ^ set(cpu_panels.items()))
+        raise AssertionError(f'nn_batteries: the snapshots differ from the '
+                             f'CPU run\'s: {diff[:6]}')
+    # the hook after a real step, on the card alone: every stage's
+    # panels of both phases are there, uint8 (names and shapes may part
+    # from the lr-0 run's once the weights moved)
+    stepped, seconds['TRAIN_ALL page, card, lr 1e-3'], moved = snapshot_page(
+        'cuda', committed, lr=1e-3)
+
+    def stage_phases(panels):
+        return {(name.split('/')[1], name.split('/')[2].split('_')[1])
+                for name in panels}
+
+    print(f'nn_batteries on {card}: TRAIN_ALL page at lr 1e-3: '
+          f'{len(stepped)} panels on the card, weights moved: {moved}, '
+          f'(stage, phase) {sorted(stage_phases(stepped))}', flush=True)
+    if (not moved or stage_phases(stepped) != stage_phases(card_panels)
+            or not {'train', 'validation'}
+            <= {phase for _, phase in stage_phases(stepped)}
+            or any(dtype != 'uint8' for dtype, _ in stepped.values())):
+        raise AssertionError('nn_batteries: after a real step the snapshots '
+                             'lack a stage or a phase, or no weight moved')
+    print(f'nn_batteries: Pillow installed: '
+          f'{importlib.util.find_spec("PIL") is not None}', flush=True)
+    out = ROOT / 'build' / 'nn_batteries'
+    with without_pillow():
+        try:
+            train_model(_Untouched(), _Untouched(),
+                        curriculum=[(Modes.TRAIN_ALL, 1e-3, 0.9, 1)],
+                        train_size=1, val_size=1,
+                        weights_out=out / 'weights.json',
+                        save_train_progress=True)
+        except RuntimeError as exc:
+            if 'Pillow' not in str(exc):
+                raise
+            print(f'nn_batteries: save_train_progress without Pillow: '
+                  f'{exc}', flush=True)
+        else:
+            raise AssertionError('nn_batteries: save_train_progress ran '
+                                 'without Pillow')
+    if (out / 'weights.json').exists():
+        raise AssertionError('nn_batteries: a checkpoint was written')
+    app = create_app()
+    app.start_background(port=0)
+    try:
+        browser = WSClient('127.0.0.1', app.port, '/test-nn-ws')
+        reader = FrameReader(browser.sock)
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        browser.emit('start', {'test_name': 'test_identity',
+                               'use_gpu': True})
+        ended = reader.wait(lambda events: any(
+            'process exited' in str(e.get('data')) for e in events), 300)
+        seconds['/test-nn-ws test_identity'] = round(
+            time.perf_counter() - t0, 2)
+        text = ''.join(str(e.get('data')) for e in reader.events)
+        browser.close()
+    finally:
+        app.shutdown()
+    print(f'nn_batteries: /test-nn-ws streamed {len(reader.events)} '
+          f'messages; the last: {text.strip().splitlines()[-3:]}', flush=True)
+    if not (ended and 'Passed: 10, Failed: 0' in text
+            and '[process exited with code 0]' in text):
+        raise AssertionError(f'nn_batteries: /test-nn-ws did not pass:\n'
+                             f'{text}')
+    print(f'nn_batteries on {card}: seconds {json.dumps(seconds)}',
+          flush=True)
+
+
 def mesh_devices():
     """The mesh of phase mesh_path: every card when there are 2 or more
     (as many as divide DEVICE_BATCH), else MESH_SHARDS logical shards on
@@ -2146,6 +2466,7 @@ def main():
     # columns (far fewer tiles than SMs) and a ragged one
     char_shapes = [(n, w) for n in (HOST_LINES, DEVICE_LINES)
                    for w in CHAR_WIDTH_MENU] + [(1, 64), (3, 37)]
+    from univer_ocr_tpu_torch import native
     from univer_ocr_tpu_torch.models.fastpath import char_head_conv
     from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
     from univer_ocr_tpu_torch.ops import kernels
@@ -2169,7 +2490,14 @@ def main():
               flush=True)
 
     with phase('build'):
-        info = _build.build()
+        # the host library's g++ beside the kernels' nvcc
+        with ThreadPoolExecutor(1) as pool:
+            host_build = pool.submit(native.build)
+            info = _build.build()
+            host_info = host_build.result()
+        print(f'build: native host CV (g++) {host_info["seconds"]:.2f} s -> '
+              f'{host_info["path"].name}', flush=True)
+        native.library()
         summary = [l.strip() for l in info['log'].splitlines()
                    if 'registers' in l or 'spill' in l]
         print(f'build: {info["seconds"]:.2f} s -> {info["path"].name}',
@@ -2269,6 +2597,9 @@ def main():
             for name in ('fused_monochrome', 'fused_char_head'):
                 if launches['path'].get(name, 0) < 1:
                     raise AssertionError(f'{name} did not launch on the path')
+
+        with phase('host_native'):
+            host_native(card, host, pages, expected)
 
         with phase('device_path'):
             results, launches['device_path'], line_widths = counted_run(
@@ -2426,6 +2757,9 @@ def main():
             if any(launches['train_path'].values()):
                 raise AssertionError('train_path launched a kernel: '
                                      f'{launches["train_path"]}')
+
+        with phase('nn_batteries'):
+            nn_batteries(card, committed)
 
         with phase('batched_train_path'):
             launches['batched_train_path'], batched_errors = (

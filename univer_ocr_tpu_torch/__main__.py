@@ -5,7 +5,8 @@ run.py).
 
 <module> is `predict` (models/predict.py: `predict [use_gpu] PAGE [--out
 DIR]`, PAGE an image file or a .npy array), `train` (train.py: `train
-[use_gpu] [console_mode] [show_progress_bar] [port]`), `generate_data`
+[use_gpu] [console_mode] [show_progress_bar] [port]
+[save_train_progress]`), `generate_data`
 (models/generate_data.py: `generate_data [--train N] [--validation N]
 [--seed S] [--out DIR] [--workers N]`, host work that needs Pillow and
 fonts) or `crop_and_rotate_benchmark` (models/crop_and_rotate_benchmark.py:

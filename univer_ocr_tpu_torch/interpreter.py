@@ -3,12 +3,13 @@ numpy/scipy copy of the parts of univer_ocr_tpu/interpreter/
 interpreter.py that the host cascade, the trainer's crop components and
 the accuracy tools call).
 
-Connected components use `scipy.ndimage.label`, which the JAX package's
-native CCL matches exactly, and rotations use `ndimage.rotate`, as the
-JAX package does by default; so no native code is needed here.  The
-crop stages fan out over a thread pool (the JAX package's default
-backend): their hot loops are numpy and scipy, which release the
-interpreter lock.
+Connected components are labelled by the native CCL (native.py, the
+port's copy of the JAX package's C++), which numbers them as
+`scipy.ndimage.label` does, as the JAX package labels wherever its
+library is built; rotations use `ndimage.rotate`, as the JAX package
+does by default (`USE_NATIVE_ROTATE`).  The crop stages fan out over a
+thread pool (the JAX package's default backend): their hot loops are
+numpy, scipy and the native calls, which release the interpreter lock.
 
 `ndimage.find_objects` takes integer labels only on newer scipy, so
 every bounding box of a boolean mask goes through `bbox`.
@@ -20,7 +21,12 @@ from multiprocessing.pool import ThreadPool
 import numpy as np
 from scipy import ndimage
 
+from . import native
 from .primitives import BITS_COUNT, CHARS, are_similar
+
+#: the native rotation (bilinear, where scipy's order-1 spline differs at
+#: the edges) is opt-in, as in the JAX package; labels are always native
+USE_NATIVE_ROTATE = False
 
 
 def bbox(mask):
@@ -30,8 +36,17 @@ def bbox(mask):
 
 
 def label_layer(layer):
-    """Threshold at mean -> connected components -> list of boolean masks."""
+    """Threshold at mean -> connected components -> list of boolean masks.
+    The native CCL labels a layer that is 2-D once its unit axes are
+    dropped (every layer the cascade gives), scipy any other, as in the
+    JAX package."""
     thresholded = np.asarray(layer) > np.mean(layer)
+    flat = thresholded.reshape(
+        [d for d in thresholded.shape if d != 1] or [1, 1])
+    if flat.ndim == 2:
+        labels2d, cnt = native.label(flat)
+        labels = labels2d.reshape(thresholded.shape)
+        return [labels == l_id + 1 for l_id in range(cnt)]
     labels, cnt = ndimage.label(thresholded)
     return [labels == l_id + 1 for l_id in range(cnt)]
 
@@ -46,6 +61,10 @@ def rotate_array(array, angle=None, good_rotation=True):
         k = (4 - int(float(angle) // 90)) % 4
         return np.ascontiguousarray(np.rot90(array, k=k, axes=(2, 1)))
     order = 1 if good_rotation else 0
+    if USE_NATIVE_ROTATE and array.ndim == 4 and array.shape[0] == 1:
+        rotated = native.rotate(
+            np.ascontiguousarray(array[0], dtype=np.float32), angle, order)
+        return rotated[None].astype(array.dtype, copy=False)
     return ndimage.rotate(array, angle, axes=(2, 1), order=order, reshape=True)
 
 

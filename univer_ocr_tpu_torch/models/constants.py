@@ -43,6 +43,11 @@ TRAIN_DATASET_LENGTH = 100
 VALIDATION_DATASET_LENGTH = 10
 #: where the port's trainer writes its checkpoint unless told otherwise
 TRAINED_WEIGHTS_PATH = GENERATED_FILES_PATH / 'model_weights_torch.json'
+#: the trainer's progress pictures (save_train_progress=True) and the
+#: flat copy of one iteration's (single_iteration_from_train_progress)
+TRAIN_PROGRESS_PATH = GENERATED_FILES_PATH / 'train_progress'
+SINGLE_ITERATION_FROM_TRAIN_PROGRESS_PATH = (
+    GENERATED_FILES_PATH / 'single_iteration_from_train_progress')
 #: the committed training pages (3 pages of 496x736, all 14 layers)
 TRAIN_FIXTURE = (Path(__file__).resolve().parents[1] / 'fixtures'
                  / 'train_pages.npz')

@@ -29,13 +29,18 @@ def encode_X(image):
     return plane.reshape((1,) + plane.shape + (1,)) / 255.0
 
 
+def decode_X_plane(X):
+    """An input tensor (or a list of one) -> its (H, W) uint8 gray plane,
+    the values decode_X's image holds; numpy only."""
+    if isinstance(X, list):
+        X = X[0]
+    return (np.asarray(X)[0, :, :, 0] * 255).astype(np.uint8)
+
+
 def decode_X(X):
     """An input tensor (or a list of one) -> a PIL L image."""
     from PIL import Image
-    if isinstance(X, list):
-        X = X[0]
-    grid = np.asarray(X)[0, :, :, 0] * 255
-    return Image.fromarray(grid.astype(np.uint8))
+    return Image.fromarray(decode_X_plane(X))
 
 
 def encode_ys(images):
@@ -49,27 +54,30 @@ def encode_ys(images):
     return ys
 
 
-def _channel_images(grid, normalize):
-    """One 2D float map -> (raw PIL image, thresholded-at-mean image)."""
-    from PIL import Image
-    grid = np.asarray(grid, np.float64)
-    if normalize:
-        grid = grid - grid.min()
-        peak = grid.max()
-        if not np.isclose(peak, 0):
-            grid = grid / peak
-    binary = (grid >= grid.mean()).astype(np.uint8) * 255
-    return (Image.fromarray((grid * 255).astype(np.uint8)),
-            Image.fromarray(binary))
+def decode_y_planes(y, normalize=False, four_dims=True):
+    """Prediction channels -> (uint8 planes, planes thresholded at their
+    mean), the values decode_y's images hold; numpy only."""
+    y = np.asarray(y)
+    channels = ([y[0, :, :, i] for i in range(y.shape[-1])]
+                if four_dims else [y])
+    raw, binary = [], []
+    for grid in channels:
+        grid = np.asarray(grid, np.float64)
+        if normalize:
+            grid = grid - grid.min()
+            peak = grid.max()
+            if not np.isclose(peak, 0):
+                grid = grid / peak
+        raw.append((grid * 255).astype(np.uint8))
+        binary.append((grid >= grid.mean()).astype(np.uint8) * 255)
+    return raw, binary
 
 
 def decode_y(y, normalize=False, four_dims=True):
     """Prediction channels -> (images, thresholded-at-mean images)."""
-    y = np.asarray(y)
-    channels = ([y[0, :, :, i] for i in range(y.shape[-1])]
-                if four_dims else [y])
-    decoded = [_channel_images(c, normalize) for c in channels]
-    return [d[0] for d in decoded], [d[1] for d in decoded]
+    from PIL import Image
+    return tuple([Image.fromarray(plane) for plane in planes]
+                 for planes in decode_y_planes(y, normalize, four_dims))
 
 
 def decode_ys(ys, normalize=False):

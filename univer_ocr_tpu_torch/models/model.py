@@ -32,9 +32,9 @@ from ..device import resolve_device
 from ..interpreter import (CropAndRotateParagraphs, CropRotateAndZoomLines,
                            LabelChar, PredToText)
 from ..nn.help_func import make_list_if_not
-from ..nn.layers import (Conv2DToBatchedFixedWidthed, Convolutional2D,
-                         Flatten, FullyConnected, LeakyRelu, Sigmoid,
-                         Upsample2D)
+from ..nn.layers import (Concat, Conv2DToBatchedFixedWidthed,
+                         Convolutional2D, Flatten, FullyConnected, LeakyRelu,
+                         Sigmoid, Upsample2D)
 from ..nn.losses import SegmentationDice2D, SoftmaxCrossEntropy
 from ..nn.metrics import multiclass_accuracy
 from ..nn.model_system import (IterableSelector, ModelComponent, ModelSystem,
@@ -87,6 +87,21 @@ def make_conv_block(out_chs, last_sigmoid=False, **kwargs):
     return Model(layers, relations)
 
 
+def make_up(out_chs, **kwargs):
+    """Upsample input 1, concatenate input 0 (the skip) after it, conv
+    block; in the zoo, though the cascade uses none."""
+    return Model(layers={
+        'upsample': Upsample2D(2),
+        'concat': Concat(),
+        'conv_block': make_conv_block(out_chs, **kwargs),
+    }, relations={
+        'upsample': 1,
+        'concat': ['upsample', 0],
+        'conv_block': 'concat',
+        0: 'conv_block',
+    })
+
+
 def make_single_up(out_chs, **kwargs):
     return Model(layers={
         'upsample': Upsample2D(2),
@@ -100,6 +115,31 @@ def make_single_up(out_chs, **kwargs):
 
 def wrap(name, model, **kwargs):
     return Model(layers={name: model}, relations={name: 0, 0: name}, **kwargs)
+
+
+def make_edge_detection(input_shape, device=None):
+    """A fixed 3x3 sharpen convolution per channel, not trainable: returns
+    X (B, H, W, C) -> the sharpened tensor on `device` (None: the card)."""
+    batch_size, height, width, in_channels = input_shape
+    w = np.zeros((3, 3, in_channels, in_channels))
+    kernel = np.array([
+        [0, -1, 0],
+        [-1, 5, -1],
+        [0, -1, 0],
+    ])
+    for c in range(in_channels):
+        w[:, :, c, c] = kernel
+    b = np.zeros((in_channels,))
+    conv = Convolutional2D(
+        (3, 3), in_channels=in_channels, out_channels=in_channels,
+        padding=1, w=w, b=b, trainable=False, device=device)
+
+    def func(X):
+        X = torch.as_tensor(np.asarray(X), dtype=conv.dtype,
+                            device=resolve_device(device))
+        return conv.forward([X])[0]
+
+    return func
 
 
 def make_monochrome(input_shape, optimizer=None, generator=None, device=None):

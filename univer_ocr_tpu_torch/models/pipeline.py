@@ -97,7 +97,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-from .. import ops
+from .. import native, ops
 from ..device import resolve_device
 from ..interpreter import (_ORIENTATION_KEYS, _extremal_coords,
                            _orientation_code, bbox,
@@ -564,13 +564,13 @@ class OCRPipeline:
         return results
 
     def _crop_page(self, mono_pred, para_mask):
-        """Label the thresholded paragraph mask, crop and deskew the
-        monochrome prediction."""
-        labels, cnt = ndimage.label(para_mask > 0)
+        """Label the thresholded paragraph mask (native CCL), crop and
+        deskew the monochrome prediction."""
+        labels, cnt = native.label(para_mask[0, :, :, 0] > 0)
         crops = []
         for l_id in range(cnt):
-            res = crop_and_rotate_single_paragraph(labels == l_id + 1,
-                                                   [mono_pred])
+            res = crop_and_rotate_single_paragraph(
+                (labels == l_id + 1)[None, :, :, None], [mono_pred])
             crops.append(make_divisible_by(res[0], 16, 16))
         return crops
 
@@ -709,7 +709,7 @@ class OCRPipeline:
         'twopass' sampler the rotated bbox is analytic, from the blob's
         extremal pixels, where the gather takes it from a scipy rotate of
         the blob."""
-        labels, _ = ndimage.label(para2d > 0)
+        labels, _ = native.label(para2d > 0)
         plans = []
         for label_id, sl in enumerate(ndimage.find_objects(labels), start=1):
             if sl is None:
@@ -789,7 +789,7 @@ class OCRPipeline:
         mask per blob: one labels pass, then per-blob bboxes and centres
         of mass."""
         thresholded = mask2d > np.mean(mask2d)
-        labels, cnt = ndimage.label(thresholded)
+        labels, cnt = native.label(thresholded)
         if cnt == 0:
             return [], np.zeros((0, 2))
         bboxes = ndimage.find_objects(labels, cnt)

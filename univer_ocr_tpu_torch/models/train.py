@@ -9,6 +9,7 @@ after `init_emitter`, to the training dashboard.
         [--weights-in JSON] [--weights-out JSON] [--epochs N]
         [--train-size N] [--val-size N] [--seed N] [--batched]
         [--batch N] [--predicted[=mix]] [--eval-gate]
+        [--save-train-progress]
 
 `--data` is a training-pages .npz (default: the committed fixture,
 univer_ocr_tpu_torch/fixtures/train_pages.npz: 2 pages to train, 1 to
@@ -27,7 +28,9 @@ in weighted batches of `--batch` samples (models/dp_train.py),
 distribution (`=mix` adds the ground-truth crops), and `--eval-gate`
 writes a stage's weights only when the end-to-end text of the eval
 corpus does not regress (models/evaluation.py), as the JAX package's
-scripts/train_tpu.py flags do.
+scripts/train_tpu.py flags do.  `--save-train-progress` writes each
+per-sample step's pictures (ProgressSnapshots) under
+generated_files/train_progress/; it needs Pillow.
 """
 
 import argparse
@@ -36,6 +39,8 @@ import random
 from pathlib import Path
 from pprint import pprint
 
+import numpy as np
+
 from ..device import resolve_device
 from ..nn.checkpoint import write_weights
 from ..nn.optimizers import Adam
@@ -43,12 +48,14 @@ from ..nn.progress_tracker import ProgressTracker
 from ..ops.precision import backend_flags
 from ..parallel.mesh import mesh_device
 from ..weights import DEFAULT_CHECKPOINT, refuse_committed
-from .constants import TRAIN_FIXTURE, TRAINED_WEIGHTS_PATH
-from .datasets import (Dataset, RandomSelectDataset, load_page_arrays,
-                       train_dataset, validation_dataset)
+from .constants import (TRAIN_FIXTURE, TRAIN_PROGRESS_PATH,
+                        TRAINED_WEIGHTS_PATH)
+from .datasets import (Dataset, RandomSelectDataset, decode_X_plane,
+                       decode_y_planes, load_page_arrays, train_dataset,
+                       validation_dataset)
 from .dp_train import _STAGE_MODEL, train_model_batched
 from .evaluation import make_eval_gate
-from .model import Modes, make_context_maker, make_model_system
+from .model import Modes, make_context_maker, make_model_system, to_host
 from .trainer import Trainer
 
 #: (mode, lr, lr decay step, epochs) of each stage, the reference's table
@@ -174,12 +181,133 @@ def _model_info(models, names):
             'receptive_fields': receptive_fields}
 
 
+def _pillow():
+    """Pillow's Image module; raises, naming Pillow, without it."""
+    try:
+        from PIL import Image
+    except ImportError as exc:
+        raise RuntimeError(
+            'save_train_progress writes its pictures with Pillow, which is '
+            f'not installed ({exc})') from None
+    return Image
+
+
+def _decode_X(X):
+    return decode_X_plane(to_host(X))
+
+
+def _decode_y(y):
+    return decode_y_planes(to_host(y))
+
+
+class ProgressSnapshots:
+    """Per-sample X / y / pred / threshold pictures of a training stage
+    (univer_ocr_tpu/models/train.py ProgressSnapshots), with the JAX
+    package's tree and file names: <path>/<mode>/<stage>/
+    {epoch}_{phase}_{index}_[{paragraph}_][{line}_]... .png, one set per
+    cascade stage the mode trains (TRAIN_ALL: all four).
+
+    `panels(epoch, phase, index, context)` computes them with numpy
+    alone, as {path relative to `path`: uint8 array (H, W) or, for the
+    Char panels, (H, W, 3)}, reading the context's tensors back from the
+    card; calling the object writes them as PNGs with Pillow (the Trainer's
+    `save_pictures_func`)."""
+
+    def __init__(self, mode, path=TRAIN_PROGRESS_PATH):
+        self.mode = mode
+        self.path = Path(path)
+        #: which stage panels each training mode draws
+        self._stages = {
+            Modes.TRAIN_MONOCHROME: (self._monochrome,),
+            Modes.TRAIN_PARAGRAPH: (self._paragraph,),
+            Modes.TRAIN_LINE: (self._line,),
+            Modes.TRAIN_CHAR: (self._char,),
+            Modes.TRAIN_ALL: (self._monochrome, self._paragraph,
+                              self._line, self._char),
+        }
+
+    def panels(self, epoch, phase, index, context):
+        out = {}
+        prefix = f'{epoch}_{phase}_{index}_'
+        for stage_panels in self._stages.get(self.mode, ()):
+            stage_panels(out, prefix, context)
+        return out
+
+    def __call__(self, epoch, phase, index, context):
+        Image = _pillow()
+        for name, image in self.panels(epoch, phase, index, context).items():
+            target = self.path / name
+            target.parent.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(image).save(target)
+
+    # -- file names ------------------------------------------------------
+
+    def _dir(self, stage):
+        return f'{self.mode.name.lower()}/{stage}/'
+
+    @staticmethod
+    def _ids(paragraph_id, line_id):
+        return (('' if paragraph_id is None else f'{paragraph_id}_')
+                + ('' if line_id is None else f'{line_id}_'))
+
+    def _quad(self, out, prefix, stage, X, y, pred, th, paragraph_id=None):
+        tag = self._dir(stage) + prefix + self._ids(paragraph_id, None)
+        for i, image in enumerate(X):
+            out[f'{tag}1_{i}_1_X.png'] = image
+        for i in range(len(y)):
+            for suffix, image in (('2_y', y[i]), ('3_pred', pred[i]),
+                                  ('4_th', th[i])):
+                out[f'{tag}2_{i}_{suffix}.png'] = image
+
+    # -- stages ----------------------------------------------------------
+
+    def _monochrome(self, out, prefix, context):
+        self._quad(out, prefix, 'monochrome',
+                   [_decode_X(context['monochrome_X'])],
+                   _decode_y(context['monochrome_y'])[0],
+                   *_decode_y(context['monochrome_pred']))
+
+    def _paragraph(self, out, prefix, context):
+        self._quad(out, prefix, 'paragraph',
+                   _decode_y(context['paragraph_X'])[0],
+                   _decode_y(context['paragraph_y'])[0],
+                   *_decode_y(context['paragraph_pred']))
+
+    def _line(self, out, prefix, context):
+        per_paragraph = zip(context['cropped_monochrome_cpu'],
+                            context['cropped_line_cpu'],
+                            context['line_pred'])
+        for p_id, (crop, bands, pred) in enumerate(per_paragraph):
+            self._quad(out, prefix, 'line', _decode_y(crop)[0],
+                       _decode_y(bands)[0], *_decode_y(pred),
+                       paragraph_id=p_id)
+
+    def _char(self, out, prefix, context):
+        """RGB panel per line: the monochrome crop on top, then (the
+        prediction's argmax, the labels, their overlap) as colour
+        channels over (classes, W)."""
+        def column(grid):            # (W, C) -> (C, W, 1) image plane
+            return to_host(grid).T[:, :, None]
+
+        for p_id, lines in enumerate(context['cropped_2_monochrome_cpu']):
+            for l_id in range(len(lines)):
+                logits = to_host(context['char_pred'][p_id][l_id])
+                pred = column(logits == logits.max(axis=1, keepdims=True))
+                labels = column(context['char_labels_cpu'][p_id][l_id])
+                panel = np.concatenate([pred, labels, pred * labels], axis=2)
+                mono_rgb = np.repeat(to_host(lines[l_id])[0], 3, axis=2)
+                tag = self._dir('char') + prefix + self._ids(p_id, l_id)
+                out[f'{tag}.png'] = (np.concatenate(
+                    [mono_rgb, panel], axis=0) * 255).astype(np.uint8)
+
+
 def train_model(train_dataset, validation_dataset, curriculum=None,
                 train_size=50, val_size=5, seed=0,
                 weights_in=DEFAULT_CHECKPOINT,
                 weights_out=TRAINED_WEIGHTS_PATH, device=None,
                 show_progress_bar=False, reporter=None, batched=False,
-                mesh=None, batch=16, predicted=False, eval_gate=False):
+                mesh=None, batch=16, predicted=False, eval_gate=False,
+                save_train_progress=False, progress_path=TRAIN_PROGRESS_PATH):
     """Run the curriculum (CURRICULUM unless given: (mode, lr, lr_step,
     epochs) per stage) on `device` (None: the card).
 
@@ -205,12 +333,17 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
     over its 'data' shards and the run computes on its first device;
     TRAIN_ALL stays per-sample, as in JAX.  The run reports to
     `reporter` (default: the module's TrainReporter, which init_emitter
-    connects to the dashboard).
+    connects to the dashboard).  `save_train_progress=True` writes every
+    per-sample step's pictures under `progress_path` (ProgressSnapshots:
+    <mode>/<stage>/...png); it needs Pillow, and without it the call
+    raises before anything else.
 
     Returns one dict per stage: mode, best validation losses and epochs,
     rollbacks, and the sample orders the trainer drew; a batched stage's:
     mode, best validation loss, sample counts and build seconds.
     """
+    if save_train_progress:
+        _pillow()
     device = resolve_device(device if mesh is None
                             else mesh_device(mesh, device))
     weights_out = Path(weights_out)
@@ -264,6 +397,10 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
                     checkpoint.update(models[name].get_weights())
                 write_weights(checkpoint, weights_out)
 
+            save_pictures_func = None
+            if save_train_progress:
+                save_pictures_func = ProgressSnapshots(mode, progress_path)
+                print(f'Saving train progress into {progress_path}\n')
             reporter.info(_model_info(models, names))
             reporter.message('Count of parameters: ' + str(sum(
                 model.count_parameters() for model in models.values())))
@@ -273,7 +410,8 @@ def train_model(train_dataset, validation_dataset, curriculum=None,
                 train_pages, val_pages, progress_tracker=tracker,
                 show_progress_bar=show_progress_bar, optimizer=optimizer,
                 learning_rate_step=lr_step, save_weights_func=save_improved,
-                rng=rng, eval_gate=gate)
+                save_pictures_func=save_pictures_func, rng=rng,
+                eval_gate=gate)
             best_loss, best_loss_epoch = trainer.train(num_epochs=epochs)
             reporter.message(f'Complete. Best loss was {best_loss} '
                              f'on epoch #{best_loss_epoch}')
@@ -313,6 +451,9 @@ def main(argv=None):
     parser.add_argument('--eval-gate', action='store_true',
                         help='write weights only when the end-to-end eval '
                              'score does not regress')
+    parser.add_argument('--save-train-progress', action='store_true',
+                        help='write each step\'s pictures under '
+                             'generated_files/train_progress (needs Pillow)')
     args = parser.parse_args(argv)
 
     data = Path(args.data)
@@ -334,7 +475,8 @@ def main(argv=None):
         weights_in=args.weights_in, weights_out=args.weights_out,
         device='cpu' if args.cpu else None, batched=args.batched,
         batch=args.batch, predicted=args.predicted,
-        eval_gate=args.eval_gate)
+        eval_gate=args.eval_gate,
+        save_train_progress=args.save_train_progress)
     for stage in results:
         print(stage['mode'], {name: list(map(float, v))
                               for name, v in stage['best_losses'].items()})

@@ -120,7 +120,9 @@ class Trainer:
     attempts -> last weights, else best weights) and a save-best-weights
     callback, which an `eval_gate` (evaluation.make_eval_gate) may
     withhold: the improved models are offered to it first, and saved only
-    on its approval."""
+    on its approval.  `save_pictures_func(epoch, phase, index, context)`,
+    when given, sees every sample's context after its step (epoch 0 is
+    the precomputing sweep; models/train.py ProgressSnapshots)."""
 
     MAX_RELOAD_ATTEMPTS = 10
 
@@ -128,7 +130,8 @@ class Trainer:
                  models, train_dataset, validation_dataset,
                  progress_tracker, show_progress_bar=False,
                  optimizer=None, learning_rate_step=0.995,
-                 save_weights_func=None, rng=None, eval_gate=None):
+                 save_weights_func=None, save_pictures_func=None, rng=None,
+                 eval_gate=None):
         self.model_system = model_system
         self.make_context_func = make_context_func
         self.models = models
@@ -139,6 +142,7 @@ class Trainer:
         self.optimizer = optimizer
         self.learning_rate_step = learning_rate_step
         self.save_weights_func = save_weights_func
+        self.save_pictures_func = save_pictures_func
         self.rng = random.Random(0) if rng is None else rng
         self.eval_gate = eval_gate
         #: (epoch, phase, sample order) of every sweep the rng shuffled
@@ -179,7 +183,7 @@ class Trainer:
         self.orders.append((epoch, phase, list(order)))
         return order
 
-    def _sweep(self, phase, dataset, order, losses, metric_sums=None):
+    def _sweep(self, phase, dataset, order, losses, epoch, metric_sums=None):
         """One pass over a dataset.  phase: 'train' | 'validation' |
         'precomputing' (the last two both run test steps)."""
         training = phase == 'train'
@@ -200,6 +204,8 @@ class Trainer:
             if metric_sums is not None:
                 for metric, values in context.get('metrics', {}).items():
                     metric_sums.setdefault(metric, []).extend(values)
+            if self.save_pictures_func is not None:
+                self.save_pictures_func(epoch, phase, i, context)
             if phase != 'precomputing':
                 self.progress_tracker.message(bar_key, {
                     'current': i + 1, 'total': len(order)})
@@ -256,7 +262,7 @@ class Trainer:
         started = dt.now()
         losses.reset()
         self._sweep('precomputing', self.validation_dataset,
-                    range(len(self.validation_dataset)), losses)
+                    range(len(self.validation_dataset)), losses, epoch=0)
         losses.print(left_margin=2)
         losses.next()
         print(f'Time required: {dt.now() - started}\n\n')
@@ -275,10 +281,11 @@ class Trainer:
             metric_sums = {}
 
             self._sweep('train', self.train_dataset,
-                        self._shuffled(train_order, epoch, 'train'), losses)
+                        self._shuffled(train_order, epoch, 'train'), losses,
+                        epoch)
             self._sweep('validation', self.validation_dataset,
                         self._shuffled(val_order, epoch, 'validation'),
-                        losses, metric_sums)
+                        losses, epoch, metric_sums)
 
             gc.collect()
             losses.normalize(len(self.train_dataset),

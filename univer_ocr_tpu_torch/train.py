@@ -3,7 +3,7 @@ train.py): connects back to the web app's /train-ws namespace so that
 the dashboard receives the run's events, or runs in console mode.
 
     python -m univer_ocr_tpu_torch.train [use_gpu] [console_mode]
-        [show_progress_bar] [port]
+        [show_progress_bar] [port] [save_train_progress]
 
 It trains the curriculum (models/train.py CURRICULUM) on the committed
 training fixture (univer_ocr_tpu_torch/fixtures/train_pages.npz), from
@@ -12,7 +12,9 @@ the committed checkpoint into generated_files/model_weights_torch.json.
 `console_mode` 'true' (the default) reports to the console, 'false'
 connects to the web app on `port` (default 8000) and falls back to the
 console when no server answers.  The web app's `start` event passes
-'false' and its own port.
+'false' and its own port.  `save_train_progress` 'true' writes each
+step's pictures under generated_files/train_progress/ (needs Pillow; the
+JAX package's train.py takes it in place of `port`).
 """
 
 import sys
@@ -29,7 +31,7 @@ def bool_convert(arg):
 
 
 def main(use_gpu=True, console_mode=True, show_progress_bar=False,
-         port=8000):
+         port=8000, save_train_progress=False):
     client = None
 
     if bool_convert(console_mode):
@@ -46,7 +48,8 @@ def main(use_gpu=True, console_mode=True, show_progress_bar=False,
         train_model(train, validation, train_size=len(train),
                     val_size=len(validation),
                     device=None if bool_convert(use_gpu) else 'cpu',
-                    show_progress_bar=bool_convert(show_progress_bar))
+                    show_progress_bar=bool_convert(show_progress_bar),
+                    save_train_progress=bool_convert(save_train_progress))
 
     except KeyboardInterrupt:
         print('Stopped by keyboard interrupt')

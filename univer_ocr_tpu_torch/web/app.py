@@ -8,7 +8,8 @@ app.py) on the stdlib server.
     The body is an image file (decoded with Pillow, imported in the
     handler) or a `.npy` array of uint8 gray values, shape (H, W) or
     (1, H, W, 1), which needs no Pillow;
-  * `/`, `/chars`, `/fonts`, `/train`, `GET /ocr`: the pages;
+  * `/`, `/chars`, `/fonts`, `/train`, `/test-nn`, `GET /ocr`: the
+    pages;
   * the demo page: `/generate_new` draws a new one, `/view_layers/<raw|
     demo>` shows its layers, `/image/<raw|demo>/<layer>` serves one as a
     PNG and `/interpret_data` decodes its text from the ground-truth
@@ -19,7 +20,11 @@ app.py) on the stdlib server.
     train.py) in a subprocess that reports back over the same namespace
     and whose output is piped to it; `stop` ends it; the trainer's
     `message` / `info` / `progress_tracker` events are rebroadcast to the
-    browsers.
+    browsers;
+  * WS `/test-nn-ws`: `start` runs an NN battery (`test_gradients` or
+    `test_identity`, `python -m univer_ocr_tpu_torch.test_nn NAME USE_GPU`)
+    in a subprocess whose output is piped to the namespace; an unknown
+    name is answered with `unknown test NAME`; `stop` ends it.
 
 Importing the app imports neither Pillow nor JAX.
 """
@@ -182,6 +187,10 @@ def create_app(device=None, demo_seed=None):
     def train(query=None):
         return render_template('train.html')
 
+    @app.route('/test-nn')
+    def test_nn(query=None):
+        return render_template('test-nn.html')
+
     @app.route('/fonts')
     def fonts(query=None):
         rows = '\n'.join(
@@ -334,11 +343,12 @@ def create_app(device=None, demo_seed=None):
                          daemon=True).start()
 
     @app.on_close
-    def stop_trainer():
-        proc = app.state.get('train_proc')
-        if proc is not None and proc.poll() is None:
-            proc.terminate()
-            proc.wait()
+    def stop_subprocesses():
+        for key in ('train_proc', 'test_proc'):
+            proc = app.state.get(key)
+            if proc is not None and proc.poll() is None:
+                proc.terminate()
+                proc.wait()
 
     @app.ws_route('/train-ws')
     def train_ws(conn, app_):
@@ -364,5 +374,32 @@ def create_app(device=None, demo_seed=None):
             elif event in ('message', 'info', 'progress_tracker'):
                 # trainer client -> rebroadcast to browsers
                 app.hub.broadcast('/train-ws', event, data, exclude=conn)
+
+    # ------------------------------------------------------------------
+    # WS /test-nn-ws
+    # ------------------------------------------------------------------
+    @app.ws_route('/test-nn-ws')
+    def test_nn_ws(conn, app_):
+        while True:
+            msg = conn.recv_event()
+            if msg is None:
+                return
+            event, data = msg.get('event'), msg.get('data')
+            if event == 'start':
+                data = data or {}
+                test_name = data.get('test_name', 'test_gradients')
+                if test_name not in ('test_gradients', 'test_identity'):
+                    conn.send_event('message', f'unknown test {test_name}\n')
+                    continue
+                use_gpu = str(data.get('use_gpu', True))
+                start_subprocess(
+                    '/test-nn-ws',
+                    [sys.executable, '-u', '-m', 'univer_ocr_tpu_torch.test_nn',
+                     test_name, use_gpu],
+                    'test_proc')
+            elif event == 'stop':
+                proc = app.state.get('test_proc')
+                if proc is not None and proc.poll() is None:
+                    proc.terminate()
 
     return app
