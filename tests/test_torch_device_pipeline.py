@@ -20,6 +20,7 @@ the fixture (`tables_texts`), as measured."""
 
 import json
 import threading
+import time
 from difflib import SequenceMatcher
 
 import numpy as np
@@ -49,6 +50,13 @@ TABLES_STAGES = DEVICE_STAGES - {'pull_band_masks'} | {'pull_band_tables'}
 #: the host cascade's, named after its device stages where it has them
 HOST_STAGES = {'pull_front', 'host_paragraph_crops', 'line_masks',
                'host_line_crops', 'char_ids', 'decode_text'}
+#: its host CV steps on the pool threads, by the pool task that runs them
+HOST_CV_STEPS = {'_crop_page': ('para_label', 'para_select', 'para_deskew'),
+                 '_crop_lines': ('line_plan', 'line_extract')}
+#: ...and its waits for the Line and Char results, and the pool threads'
+#: CPU seconds inside the steps
+HOST_STAGES |= {step for steps in HOST_CV_STEPS.values() for step in steps}
+HOST_STAGES |= {'line_pull', 'char_pull', 'host_cv_thread_cpu'}
 
 
 def assert_within_flip_budget(got, expected):
@@ -198,12 +206,71 @@ def test_device_cascade_stage_timers(device_run):
                for _, start, end, nbytes in timeline)
 
 
-def test_host_cascade_stage_timers(weights, pages):
+@pytest.fixture(scope='module')
+def host_run(weights, pages):
+    """The host cascade on two fixture pages, chunk 2, 2 workers,
+    'highest', with its stage timers on and the arguments of each pool
+    task kept: (open pipeline, texts, timers, {task: [args]})."""
     with _port(weights) as host:
+        tasks = {name: [] for name in HOST_CV_STEPS}
+        for name, calls in tasks.items():
+            def spy(*args, _fn=getattr(host, name), _calls=calls):
+                _calls.append(args)
+                return _fn(*args)
+            setattr(host, name, spy)
         host.timers = StageTimers()
-        host.ocr_pages(pages[:2])
-        assert set(host.timers.summary()) == HOST_STAGES
-        assert host.timeline == []
+        texts = host.ocr_pages(pages[:2])
+        timers, host.timers = host.timers, None
+        yield host, texts, timers, tasks
+
+
+def test_host_cascade_stage_timers(host_run):
+    """Every span and the counter; each host CV step counts what it runs
+    over, the steps fit inside the pool maps that run them and cover each
+    pool task's work; the CPU seconds fit inside the steps, the pulls
+    inside their stages."""
+    host, texts, timers, tasks = host_run
+    assert set(timers.summary()) == HOST_STAGES
+    assert host.timeline == []
+    count, total = timers.counts, timers.totals
+    paragraphs = sum(len(page) for page in texts)
+    assert paragraphs > 0
+    assert count['para_label'] == len(texts)
+    assert (count['para_select'] == count['para_deskew']
+            == count['line_plan'] == paragraphs)
+    assert count['line_extract'] == sum(len(lines) for page in texts
+                                        for lines in page)
+    steps = [s for names in HOST_CV_STEPS.values() for s in names]
+    busy = sum(total[s] for s in steps)
+    assert count['host_cv_thread_cpu'] == sum(count[s] for s in steps)
+    assert busy <= 2 * (total['host_paragraph_crops']
+                        + total['host_line_crops']) + 1e-3
+    assert 0 < total['host_cv_thread_cpu'] <= busy + 1e-3
+    assert total['line_pull'] <= total['line_masks']
+    assert total['char_pull'] <= total['char_ids']
+
+    def covered(name, args):
+        host.timers = StageTimers()
+        start = time.perf_counter()
+        getattr(OCRPipeline, name)(host, *args)
+        wall = time.perf_counter() - start
+        part = sum(host.timers.totals[s] for s in HOST_CV_STEPS[name])
+        host.timers = None
+        return part / wall
+
+    # one task of each kind, the paragraph with the largest crop; the best
+    # of three timings, as a busy host may stall a run between two steps
+    picks = {'_crop_page': tasks['_crop_page'][0],
+             '_crop_lines': max(tasks['_crop_lines'],
+                                key=lambda args: args[1].size)}
+    for name, args in picks.items():
+        assert max(covered(name, args) for _ in range(3)) >= 0.95, name
+
+
+def test_host_cascade_text_same_with_or_without_timers(host_run, pages):
+    host, texts, _, _ = host_run
+    assert host.timers is None
+    assert host.ocr_pages(pages[:2]) == texts
 
 
 @pytest.mark.parametrize('cascade', ['host', 'device', 'tables'])

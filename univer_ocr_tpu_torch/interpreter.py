@@ -310,13 +310,28 @@ def crop_and_rotate_single_paragraph(mask, arrays, find_rotation=True, eps=1.0):
     """Crop one labeled paragraph's bbox from all co-registered arrays and
     deskew it (reference CropAndRotateSingleParagraph._run/_func:297-347,
     with the analytic angle search replacing the nested pools)."""
+    return deskew_paragraph(*select_paragraph(mask, arrays), find_rotation,
+                            eps)
+
+
+def select_paragraph(mask, arrays):
+    """The first half of crop_and_rotate_single_paragraph: the paragraph's
+    bbox crop of its mask and of each co-registered array times the
+    mask."""
     _, region_y, region_x, _ = bbox(mask)
     cropped_mask = mask[:, region_y, region_x, :]
     cropped_arrays = [
         (image * mask)[:, region_y, region_x, :]
         for image in arrays
     ]
+    return cropped_mask, cropped_arrays
 
+
+def deskew_paragraph(cropped_mask, cropped_arrays, find_rotation=True,
+                     eps=1.0):
+    """The second half of crop_and_rotate_single_paragraph: the deskew
+    angle of the cropped mask, and each cropped array rotated by it and
+    cut to the rotated mask's bbox."""
     angle = find_rotation_angle(cropped_mask, eps) if find_rotation else None
 
     # nearest-neighbour rotation of the 0/1 mask as uint8: the same values

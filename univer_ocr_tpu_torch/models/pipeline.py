@@ -100,11 +100,10 @@ from scipy import ndimage
 from .. import native, ops
 from ..device import resolve_device
 from ..interpreter import (_ORIENTATION_KEYS, _extremal_coords,
-                           _orientation_code, bbox,
-                           crop_and_rotate_single_paragraph, extract_line,
-                           find_rotation_angle, label_layer,
+                           _orientation_code, bbox, deskew_paragraph,
+                           extract_line, find_rotation_angle, label_layer,
                            plan_paragraph_lines, pred_ids_to_text,
-                           rotate_array)
+                           rotate_array, select_paragraph)
 from ..ops.kernels import fused_monochrome
 from ..parallel.mesh import Replicated, mesh_device, replicate, to_device
 from ..parallel.serving import shard_cascade_stage, shard_fn_over_batch
@@ -137,13 +136,32 @@ SUSPECT_BITS = ('merge', 'cross', 'table_of', 'lines_of', 'pool_of',
 
 
 def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
-                            minimal_width, thresholded_input=False):
+                            minimal_width, thresholded_input=False,
+                            step=contextlib.nullcontext):
     """Line bands of one paragraph -> list of zoomed line crops of the
     monochrome image.  `thresholded_input` marks line_pred as already
-    thresholded band masks (the device-side threshold)."""
-    bboxes, rotation = plan_paragraph_lines(line_pred, thresholded_input)
-    return [extract_line(mono_crop, b, rotation, zoomed_height,
-                         minimal_width) for b in bboxes]
+    thresholded band masks (the device-side threshold).  `step(name)`
+    gives the context the line plan ('line_plan') and each line's crop
+    ('line_extract') run in: `OCRPipeline._step`, or none."""
+    with step('line_plan'):
+        bboxes, rotation = plan_paragraph_lines(line_pred, thresholded_input)
+    lines = []
+    for b in bboxes:
+        with step('line_extract'):
+            lines.append(extract_line(mono_crop, b, rotation, zoomed_height,
+                                      minimal_width))
+    return lines
+
+
+@contextlib.contextmanager
+def _thread_cpu_span(timers, name):
+    """The span `name`, and the calling thread's CPU seconds inside it
+    added to 'host_cv_thread_cpu'."""
+    with timers.track(name):
+        cpu = time.thread_time()
+        yield
+        cpu = time.thread_time() - cpu
+    timers.add('host_cv_thread_cpu', cpu)
 
 
 def _to_u8(x):
@@ -169,9 +187,12 @@ class OCRPipeline:
     `parallel.make_mesh` mesh whose 'data' shards split every launch batch
     (its devices of `device`'s type; DEVICE_BATCH must divide over
     them).  Set `timers` to a
-    `utils.profiling.StageTimers` to time the stages
-    (with it set, `timeline` records every device-to-host pull as
-    (tag, start, end, bytes)).  Close the pipeline (`close()` or `with`)
+    `utils.profiling.StageTimers` to time the stages: in the host
+    cascade also each host CV step on the pool threads, with the threads'
+    CPU seconds in it (`host_cv_thread_cpu`), and the waits for the Line
+    and Char results (`line_pull`, `char_pull`); in the device cascade,
+    `timeline` then records every device-to-host pull as (tag, start,
+    end, bytes).  Close the pipeline (`close()` or `with`)
     to shut its thread pools down.
     """
 
@@ -311,6 +332,14 @@ class OCRPipeline:
         if self.timers is None:
             return contextlib.nullcontext()
         return self.timers.track(name)
+
+    def _step(self, name):
+        """A host CV step of a pool task: its span and its thread's CPU
+        seconds.  The steps of a task cover all of its work."""
+        timers = self.timers
+        if timers is None:
+            return contextlib.nullcontext()
+        return _thread_cpu_span(timers, name)
 
     # -- transfers ---------------------------------------------------------
     def _tensor(self, arr):
@@ -565,14 +594,25 @@ class OCRPipeline:
 
     def _crop_page(self, mono_pred, para_mask):
         """Label the thresholded paragraph mask (native CCL), crop and
-        deskew the monochrome prediction."""
-        labels, cnt = native.label(para_mask[0, :, :, 0] > 0)
+        deskew the monochrome prediction (crop_and_rotate_single_paragraph
+        in its two steps)."""
+        with self._step('para_label'):
+            labels, cnt = native.label(para_mask[0, :, :, 0] > 0)
         crops = []
         for l_id in range(cnt):
-            res = crop_and_rotate_single_paragraph(
-                (labels == l_id + 1)[None, :, :, None], [mono_pred])
-            crops.append(make_divisible_by(res[0], 16, 16))
+            with self._step('para_select'):
+                mask, selected = select_paragraph(
+                    (labels == l_id + 1)[None, :, :, None], [mono_pred])
+            with self._step('para_deskew'):
+                (crop,) = deskew_paragraph(mask, selected)
+                crops.append(make_divisible_by(crop, 16, 16))
         return crops
+
+    def _crop_lines(self, line_pred, crop):
+        """One paragraph's zoomed line crops."""
+        return crop_lines_of_paragraph(
+            line_pred, crop, CHAR_INPUT_HEIGHT, CHAR_FIXED_WIDTH,
+            thresholded_input=self.quantized_transfers, step=self._step)
 
     def _run_line_batched(self, crops):
         """All paragraph crops (flat list) -> line predictions, or band
@@ -603,11 +643,12 @@ class OCRPipeline:
                                           self._tensor(ws))))
 
         preds = [None] * len(crops)
-        for idxs, dev_out in launches:
-            out = dev_out.cpu().numpy()
-            for bi, i in enumerate(idxs):
-                h, w = crops[i].shape[1], crops[i].shape[2]
-                preds[i] = out[bi:bi + 1, :h, :w, :]
+        with self._track('line_pull'):
+            for idxs, dev_out in launches:
+                out = dev_out.cpu().numpy()
+                for bi, i in enumerate(idxs):
+                    h, w = crops[i].shape[1], crops[i].shape[2]
+                    preds[i] = out[bi:bi + 1, :h, :w, :]
         return preds
 
     def _run_char_batched(self, lines):
@@ -635,12 +676,13 @@ class OCRPipeline:
                                  self.char_ids(self._tensor(batch),
                                                self._tensor(ws))))
         preds = [None] * len(lines)
-        for chunk_idx, (ids_dev, valid_dev) in launches:
-            ids = ids_dev.cpu().numpy()
-            valid = valid_dev.cpu().numpy()
-            for bi, i in enumerate(chunk_idx):
-                w = lines[i].shape[2]
-                preds[i] = (ids[bi, :w], valid[bi, :w])
+        with self._track('char_pull'):
+            for chunk_idx, (ids_dev, valid_dev) in launches:
+                ids = ids_dev.cpu().numpy()
+                valid = valid_dev.cpu().numpy()
+                for bi, i in enumerate(chunk_idx):
+                    w = lines[i].shape[2]
+                    preds[i] = (ids[bi, :w], valid[bi, :w])
         return preds
 
     def _ocr_chunk(self, pages, mono, para):
@@ -657,15 +699,9 @@ class OCRPipeline:
         with self._track('line_masks'):
             flat_line_preds = self._run_line_batched(flat_crops)
 
-        def crop_lines(k):
-            return crop_lines_of_paragraph(
-                flat_line_preds[k], flat_crops[k],
-                CHAR_INPUT_HEIGHT, CHAR_FIXED_WIDTH,
-                thresholded_input=self.quantized_transfers)
-
         with self._track('host_line_crops'):
-            lines_per_crop = list(self._pool.map(crop_lines,
-                                                 range(len(flat_crops))))
+            lines_per_crop = list(self._pool.map(
+                self._crop_lines, flat_line_preds, flat_crops))
 
         flat_lines = [l for lines in lines_per_crop for l in lines]
         with self._track('char_ids'):

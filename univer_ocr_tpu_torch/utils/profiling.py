@@ -5,9 +5,9 @@
     Chrome trace under `dir` and the profiler is returned for
     `key_averages()`;
   * `StageTimers`: named cumulative wall-clock timers for the pipeline's
-    stages (`OCRPipeline.timers`).  Stages of the device cascade run on
-    several threads at once, so a total can exceed the wall time it
-    overlaps.
+    stages (`OCRPipeline.timers`), and counters added beside them.
+    Stages run on several threads at once, so a total can exceed the
+    wall time it overlaps.
 """
 
 import contextlib
@@ -50,6 +50,13 @@ class StageTimers:
                 self.totals[name] += elapsed
                 self.counts[name] += 1
 
+    def add(self, name, seconds):
+        """Count `seconds` under `name` beside the spans: a quantity that is
+        no wall interval (the pipeline's `host_cv_thread_cpu`)."""
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+
     def summary(self):
         return {
             name: {'total_s': round(self.totals[name], 4),
@@ -58,8 +65,3 @@ class StageTimers:
                                     / max(1, self.counts[name]), 3)}
             for name in self.totals
         }
-
-    def print(self, prefix=''):
-        for name, stats in sorted(self.summary().items()):
-            print(f'{prefix}{name}: {stats["total_s"]}s '
-                  f'x{stats["count"]} ({stats["mean_ms"]}ms avg)')
