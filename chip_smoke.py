@@ -1827,18 +1827,33 @@ def groundtruth_path(params, committed, char_prep, char_w, rng):
     return launches, err
 
 
+def scipy_label_stats(mask):
+    """native.label_stats from scipy.ndimage.label, a mask per label."""
+    from scipy import ndimage
+    labels, n = ndimage.label(np.asarray(mask))
+    coords = [np.argwhere(labels == k) for k in range(1, n + 1)]
+    boxes = [(y.start, y.stop, x.start, x.stop)
+             for y, x in ndimage.find_objects(labels)]
+    return (labels.astype(np.int32), n,
+            np.array([len(c) for c in coords], np.int64),
+            np.array([c.mean(axis=0) for c in coords]).reshape(n, 2),
+            np.array(boxes, np.int32).reshape(n, 4))
+
+
 @contextlib.contextmanager
 def scipy_labels():
     """Inside the block the port labels with scipy.ndimage.label in place
-    of its native CCL (the comparison of host_native)."""
+    of its native CCL and its statistics pass (the comparison of
+    host_native)."""
     from scipy import ndimage
     from univer_ocr_tpu_torch import native
-    native_label = native.label
+    native_label, native_stats = native.label, native.label_stats
     native.label = lambda mask: ndimage.label(np.asarray(mask))
+    native.label_stats = scipy_label_stats
     try:
         yield
     finally:
-        native.label = native_label
+        native.label, native.label_stats = native_label, native_stats
 
 
 def median_call_ms(fn, args, reps=NATIVE_REPS):

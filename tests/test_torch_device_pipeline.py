@@ -53,10 +53,12 @@ HOST_STAGES = {'pull_front', 'host_paragraph_crops', 'line_masks',
 #: its host CV steps on the pool threads, by the pool task that runs them
 HOST_CV_STEPS = {'_crop_page': ('para_label', 'para_select', 'para_deskew'),
                  '_crop_lines': ('line_plan', 'line_extract')}
-#: ...and its waits for the Line and Char results, and the pool threads'
-#: CPU seconds inside the steps
+#: ...and its waits for the Line and Char results, the pool threads' CPU
+#: seconds inside the steps, and the band components the line plans
+#: summarised
 HOST_STAGES |= {step for steps in HOST_CV_STEPS.values() for step in steps}
-HOST_STAGES |= {'line_pull', 'char_pull', 'host_cv_thread_cpu'}
+HOST_STAGES |= {'line_pull', 'char_pull', 'host_cv_thread_cpu',
+                'line_plan_components'}
 
 
 def assert_within_flip_budget(got, expected):
@@ -225,7 +227,7 @@ def host_run(weights, pages):
 
 
 def test_host_cascade_stage_timers(host_run):
-    """Every span and the counter; each host CV step counts what it runs
+    """Every span and counter; each host CV step counts what it runs
     over, the steps fit inside the pool maps that run them and cover each
     pool task's work; the CPU seconds fit inside the steps, the pulls
     inside their stages."""
@@ -240,6 +242,11 @@ def test_host_cascade_stage_timers(host_run):
             == count['line_plan'] == paragraphs)
     assert count['line_extract'] == sum(len(lines) for page in texts
                                         for lines in page)
+    # one count per plan; each line has a top component of its own and a
+    # paragraph with lines one bottom component at least
+    assert count['line_plan_components'] == paragraphs
+    assert total['line_plan_components'] >= count['line_extract'] + sum(
+        1 for page in texts for lines in page if lines)
     steps = [s for names in HOST_CV_STEPS.values() for s in names]
     busy = sum(total[s] for s in steps)
     assert count['host_cv_thread_cpu'] == sum(count[s] for s in steps)

@@ -3,19 +3,27 @@ interpret and its sort helpers) against the JAX package's, on the CPU:
 equal dicts on rendered pages (upright and rotated), the demo page and
 degenerate input; equal orders on random point sets.  interpret never
 hands ndimage.find_objects a boolean array (newer scipy refuses one).
-Every module on the card's path imports without Pillow."""
+The line planner (plan_paragraph_lines, on component statistics) gives
+the JAX package's plans, and the host cascade's paragraph crops
+(OCRPipeline._crop_page, masks inside each box) are select_paragraph's
+and deskew_paragraph's.  Every module on the card's path imports without
+Pillow."""
 
 import random
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+from scipy import ndimage
 
 from univer_ocr_tpu import image_generator as jgen
 from univer_ocr_tpu.interpreter import interpreter as jinterp
 from univer_ocr_tpu.models import train_data_generator as jtdg
 from univer_ocr_tpu_torch import interpreter as tinterp
+from univer_ocr_tpu_torch.models.bucketing import make_divisible_by
+from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
 
 
 def _page(seed, rotate):
@@ -91,6 +99,101 @@ def test_sort_helpers_equal_jax():
     for a, b in zip(tinterp.get_center_of_mass(masks, masks[::-1]),
                     jinterp.get_center_of_mass(masks, masks[::-1])):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _band_pred(lines, shape=(72, 150), seed=0):
+    """(1, H, W, 2) float band prediction over faint noise: for each (row,
+    x0, x1) a top bar at rows [row, row + 3) and a bottom bar at
+    [row + 6, row + 9) over columns [x0, x1)."""
+    rng = np.random.default_rng(seed)
+    pred = 0.2 * rng.random((1,) + shape + (2,), np.float32)
+    for row, x0, x1 in lines:
+        pred[0, row:row + 3, x0:x1, 0] += 0.8
+        pred[0, row + 6:row + 9, x0:x1, 1] += 0.8
+    return pred
+
+
+LINES = [(4, 10, 140), (20, 12, 120), (36, 8, 146), (52, 30, 100)]
+
+
+def _plan_case(case):
+    """-> (band prediction, thresholded_input)."""
+    kind, _, turn = case.partition(' ')
+    if kind in ('float', 'thresholded'):
+        pred = np.rot90(_band_pred(LINES), int(turn) // 90, axes=(2, 1))
+        if kind == 'float':
+            return np.ascontiguousarray(pred), False
+        return (pred > 0.5).astype(np.uint8), True
+    pred = _band_pred(LINES)
+    if case == 'more tops than bottoms':
+        # the top bars break in two over one bottom bar: duplicate picks
+        pred[0, :, 60:64, 0] = 0.0
+    elif case == 'empty channel':
+        pred[..., 1] = 0.0
+    elif case == 'full channel':
+        pred = (pred > 0.5).astype(np.uint8)
+        pred[..., 0] = 1
+        return pred, True
+    elif case == 'tied centres':
+        # two lines side by side (their centres tie in reading order) and
+        # a top bar midway between two bottom bars (tied distances)
+        pred = _band_pred([(4, 10, 60), (4, 80, 130)])
+        pred[0, 40:43, 10:60, 0] += 0.8
+        pred[0, 34:37, 10:60, 1] += 0.8
+        pred[0, 46:49, 10:60, 1] += 0.8
+    return pred, False
+
+
+@pytest.mark.parametrize('case', [
+    'float 0', 'float 90', 'float 180', 'float 270', 'thresholded 0',
+    'thresholded 90', 'thresholded 180', 'thresholded 270',
+    'more tops than bottoms', 'empty channel', 'full channel',
+    'tied centres'])
+def test_plan_paragraph_lines_equals_jax(case):
+    """The port's planner, on one labelling pass's statistics, against the
+    JAX package's on a mask per component: the same bbox slices in the
+    same order and the same rotation."""
+    pred, thresholded = _plan_case(case)
+    got = tinterp.plan_paragraph_lines(pred, thresholded)
+    want = jinterp.plan_paragraph_lines(pred, thresholded)
+    assert got == want
+    bboxes, rotation = got
+    if case in ('empty channel', 'full channel'):
+        assert bboxes == [] and rotation is None
+    else:
+        assert len(bboxes) >= 3
+    if case.endswith((' 90', ' 180', ' 270')):
+        assert rotation == int(case.split()[1])
+
+
+def test_crop_page_equals_select_and_deskew():
+    """OCRPipeline._crop_page's crops (the paragraph's mask formed inside
+    its box alone) equal select_paragraph then deskew_paragraph on the
+    full-page mask of each paragraph: a level block, a tilted one, and an
+    L whose box holds another paragraph."""
+    rng = np.random.default_rng(5)
+    para = np.zeros((1, 96, 128, 1), np.float32)
+    para[0, 4:20, 6:50, 0] = 1.0
+    for x in range(60, 120):
+        y = 10 + (x - 60) // 4
+        para[0, y:y + 9, x, 0] = 1.0
+    para[0, 40:90, 8:16, 0] = para[0, 82:90, 8:70, 0] = 1.0
+    para[0, 60:70, 30:40, 0] = 1.0
+    mono = rng.random(para.shape, np.float32)
+    labels, n = ndimage.label(para[0, :, :, 0] > 0)
+    assert n == 4
+    want = []
+    for k in range(1, n + 1):
+        mask, selected = tinterp.select_paragraph(
+            (labels == k)[None, :, :, None], [mono])
+        (crop,) = tinterp.deskew_paragraph(mask, selected)
+        want.append(make_divisible_by(crop, 16, 16))
+    got = OCRPipeline._crop_page(SimpleNamespace(timers=None), mono, para)
+    assert len(got) == n
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert tinterp.find_rotation_angle((labels == 2)[None, :, :, None])
 
 
 def test_find_objects_never_gets_a_boolean_array(monkeypatch):

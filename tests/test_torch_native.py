@@ -2,11 +2,13 @@
 of the JAX package's C++, built with g++ at first use) against scipy and
 the JAX package's native library (loaded by the JAX package, never by the
 port): labels, counts and boxes equal exactly on random masks and on the
-fixture pages' paragraph and Line band masks; rotate and zoom equal the
-JAX package's native output exactly (the same source and flags); the four
-call sites label natively and give what scipy's labels give; the host
-cascade's text of the fixture pages is unchanged; a failed build raises;
-builds by several processes at once land one library."""
+fixture pages' paragraph and Line band masks; the port's own statistics
+pass (label_stats) equals scipy's labels, boxes and per-label centres,
+bit for bit; rotate and zoom equal the JAX package's native output
+exactly (the same source and flags); the four call sites label natively
+and give what scipy's labels give; the host cascade's text of the fixture
+pages is unchanged; a failed build raises; builds by several processes at
+once land one library."""
 
 import ctypes
 import subprocess
@@ -35,6 +37,17 @@ def scipy_label(mask):
     return labels.astype(np.int32), n
 
 
+def scipy_label_stats(mask):
+    """native.label_stats from scipy's labels: a mask per label."""
+    labels, n = scipy_label(mask)
+    comps = [np.argwhere(labels == k) for k in range(1, n + 1)]
+    boxes = [(y.start, y.stop, x.start, x.stop)
+             for y, x in ndimage.find_objects(labels)]
+    return (labels, n, np.array([len(c) for c in comps], np.int64),
+            np.array([c.mean(axis=0) for c in comps]).reshape(n, 2),
+            np.array(boxes, np.int32).reshape(n, 4))
+
+
 @pytest.fixture(scope='module', autouse=True)
 def jax_library():
     """The JAX package's committed library, loaded by the JAX package."""
@@ -50,10 +63,15 @@ def host_run():
         pages, texts = f['pages'], __import__('json').loads(str(f['texts']))
     seen = {'para': [], 'bands': [], 'native': 0, 'scipy': 0}
     native_label, scipy_label_fn = native.label, ndimage.label
+    native_stats = native.label_stats
 
     def counted_native(mask):
         seen['native'] += 1
         return native_label(mask)
+
+    def counted_stats(mask):
+        seen['native'] += 1
+        return native_stats(mask)
 
     def counted_scipy(*args, **kwargs):
         seen['scipy'] += 1
@@ -76,6 +94,7 @@ def host_run():
             return out
 
         mp.setattr(native, 'label', counted_native)
+        mp.setattr(native, 'label_stats', counted_stats)
         mp.setattr(ndimage, 'label', counted_scipy)
         mp.setattr(pipeline, '_ocr_chunk', keep_para)
         mp.setattr(pipeline, '_run_line_batched', keep_bands)
@@ -168,18 +187,79 @@ def _assert_same(got, exp):
                                   '_band_blob_stats', 'label_layer'])
 def test_each_call_site_labels_natively(site, host_run, monkeypatch):
     """The four sites where JAX labels natively: with the native labels
-    they give exactly what they give with scipy's, and they call the
-    native CCL."""
+    (`label`, or `label_stats` where the site takes each component's
+    statistics) they give exactly what they give with scipy's, and they
+    call the native CCL."""
     calls = []
-    label = native.label
+    label, label_stats = native.label, native.label_stats
     monkeypatch.setattr(native, 'label',
                         lambda m: calls.append(1) or label(m))
+    monkeypatch.setattr(native, 'label_stats',
+                        lambda m: calls.append(1) or label_stats(m))
     got = _site_outputs(site, host_run)
     assert calls
     monkeypatch.setattr(native, 'label', scipy_label)
+    monkeypatch.setattr(native, 'label_stats', scipy_label_stats)
     exp = _site_outputs(site, host_run)
     assert len(exp) > 0
     _assert_same(got, exp)
+
+
+def _u_shapes():
+    """Two U shapes whose arms take provisional labels of their own until
+    the bottom bar merges them, beside a one-pixel component."""
+    mask = np.zeros((9, 14), bool)
+    mask[1:7, 1] = mask[1:7, 5] = mask[6, 1:6] = True
+    mask[2:8, 8] = mask[2:8, 12] = mask[7, 8:13] = True
+    mask[0, 10] = True
+    return mask
+
+
+def _checkerboard(shape):
+    """Every other pixel set: one-pixel components, more than
+    label_stats makes room for at first."""
+    return (np.add.outer(np.arange(shape[0]), np.arange(shape[1])) % 2
+            == 0)
+
+
+@pytest.mark.parametrize('case', [
+    'random 0.05', 'random 0.3', 'random 0.5', 'random 0.7', 'empty',
+    'one pixel', 'full', '1 x W', 'H x 1', 'one-pixel components',
+    'u shapes'])
+def test_label_stats_equal_scipy(case):
+    """label_stats against scipy's labels and find_objects and
+    np.argwhere(labels == k).mean(axis=0): labels, count and boxes equal,
+    the counts equal, the centres bit-equal."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith('random'):
+        mask = rng.random((57, 83)) < float(case.split()[1])
+    else:
+        mask = {
+            'empty': lambda: np.zeros((12, 20), bool),
+            'one pixel': lambda: np.eye(1, 1, dtype=bool),
+            'full': lambda: np.ones((15, 11), bool),
+            '1 x W': lambda: rng.random((1, 101)) < 0.5,
+            'H x 1': lambda: rng.random((101, 1)) < 0.5,
+            'one-pixel components': lambda: _checkerboard((23, 31)),
+            'u shapes': _u_shapes,
+        }[case]()
+    labels, n, counts, centres, boxes = native.label_stats(mask)
+    exp, m = ndimage.label(mask)
+    assert n == m
+    assert (counts.dtype, centres.dtype, boxes.dtype) == (
+        np.int64, np.float64, np.int32)
+    assert counts.shape == (n,) and centres.shape == boxes.shape[:1] + (2,)
+    np.testing.assert_array_equal(labels, exp)
+    assert [(slice(y0, y1), slice(x0, x1))
+            for y0, y1, x0, x1 in boxes.tolist()] == ndimage.find_objects(exp)
+    for k in range(1, n + 1):
+        coords = np.argwhere(exp == k)
+        assert counts[k - 1] == len(coords)
+        assert centres[k - 1].tobytes() == coords.mean(axis=0).tobytes()
+    if case == 'one-pixel components':
+        assert n > 64
+    if case == 'u shapes':
+        assert n == 3
 
 
 @pytest.mark.parametrize('angle, order', [

@@ -1,5 +1,6 @@
 // Native host-CV kernels for the interpreter's hot loops (the port's copy
-// of univer_ocr_tpu/native/univocr_native.cpp; the code is unchanged).
+// of univer_ocr_tpu/native/univocr_native.cpp, with the labelling's first
+// pass shared by ccl_4conn and the port's own ccl_4conn_stats).
 //
 // The cascade's host stages (paragraph/line cropping) spend their time in
 // connected-component labeling, image rotation, and zooming.  These C++
@@ -15,32 +16,27 @@
 #include <thread>
 #include <vector>
 
-extern "C" {
+namespace {
 
-// ---------------------------------------------------------------------------
-// Connected-component labeling, 4-connectivity, raster-scan label order —
-// matches scipy.ndimage.label's default structuring element and numbering.
-// mask: H*W uint8 (nonzero = foreground); labels: H*W int32 out.
-// Returns the number of components.
-// ---------------------------------------------------------------------------
-int ccl_4conn(const uint8_t* mask, int H, int W, int32_t* labels) {
+int32_t find_root(std::vector<int32_t>& parent, int32_t x) {
+    while (parent[x] != x) {
+        parent[x] = parent[parent[x]];
+        x = parent[x];
+    }
+    return x;
+}
+
+// First pass of the labelling: provisional labels + unions.  parent[0] is
+// the background sentinel; every other entry is a provisional label.
+std::vector<int32_t> provisional_labels(const uint8_t* mask, int H, int W,
+                                        int32_t* labels) {
     std::vector<int32_t> parent;
     parent.reserve(1024);
-    parent.push_back(0);  // 0 = background sentinel
-
-    auto find = [&](int32_t x) {
-        while (parent[x] != x) {
-            parent[x] = parent[parent[x]];
-            x = parent[x];
-        }
-        return x;
-    };
+    parent.push_back(0);
     auto unite = [&](int32_t a, int32_t b) {
-        a = find(a); b = find(b);
+        a = find_root(parent, a); b = find_root(parent, b);
         if (a != b) parent[std::max(a, b)] = std::min(a, b);
     };
-
-    // First pass: provisional labels + unions.
     for (int y = 0; y < H; ++y) {
         for (int x = 0; x < W; ++x) {
             const int idx = y * W + x;
@@ -48,7 +44,8 @@ int ccl_4conn(const uint8_t* mask, int H, int W, int32_t* labels) {
             const int32_t up   = (y > 0) ? labels[idx - W] : 0;
             const int32_t left = (x > 0) ? labels[idx - 1] : 0;
             if (up && left) {
-                labels[idx] = std::min(find(up), find(left));
+                labels[idx] = std::min(find_root(parent, up),
+                                       find_root(parent, left));
                 unite(up, left);
             } else if (up || left) {
                 labels[idx] = up ? up : left;
@@ -59,6 +56,27 @@ int ccl_4conn(const uint8_t* mask, int H, int W, int32_t* labels) {
             }
         }
     }
+    return parent;
+}
+
+// One component's statistics, gathered in the renumbering pass.
+struct Component {
+    int64_t count, sum_y, sum_x;
+    int32_t y0, y1, x0, x1;
+};
+
+}  // namespace
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Connected-component labeling, 4-connectivity, raster-scan label order —
+// matches scipy.ndimage.label's default structuring element and numbering.
+// mask: H*W uint8 (nonzero = foreground); labels: H*W int32 out.
+// Returns the number of components.
+// ---------------------------------------------------------------------------
+int ccl_4conn(const uint8_t* mask, int H, int W, int32_t* labels) {
+    std::vector<int32_t> parent = provisional_labels(mask, H, W, labels);
 
     // Second pass: flatten + renumber in first-encounter raster order
     // (scipy's numbering).
@@ -66,11 +84,65 @@ int ccl_4conn(const uint8_t* mask, int H, int W, int32_t* labels) {
     int32_t next = 0;
     for (int i = 0; i < H * W; ++i) {
         if (!labels[i]) continue;
-        const int32_t root = find(labels[i]);
+        const int32_t root = find_root(parent, labels[i]);
         if (!remap[root]) remap[root] = ++next;
         labels[i] = remap[root];
     }
     return next;
+}
+
+// ---------------------------------------------------------------------------
+// ccl_4conn's labels and count, and, gathered in its renumbering pass, the
+// statistics of each label l = 1..n at row l - 1: counts (n int64, its
+// pixels), sums (n*2 int64: the sums of their y and of their x) and boxes
+// (n*4 int32: ymin, ymax_exclusive, xmin, xmax_exclusive).  The statistics
+// are written only when n <= cap; the count is returned either way.
+// ---------------------------------------------------------------------------
+int ccl_4conn_stats(const uint8_t* mask, int H, int W, int32_t* labels,
+                    int cap, int64_t* counts, int64_t* sums,
+                    int32_t* boxes) {
+    std::vector<int32_t> parent = provisional_labels(mask, H, W, labels);
+
+    // The second pass of ccl_4conn, a run of one provisional label at a
+    // time: its pixels take the label, and its statistics are added at once.
+    std::vector<int32_t> remap(parent.size(), 0);
+    std::vector<Component> comps;
+    for (int y = 0; y < H; ++y) {
+        int32_t* row = labels + (size_t)y * W;
+        int x = 0;
+        while (x < W) {
+            const int32_t prov = row[x];
+            if (!prov) { ++x; continue; }
+            int end = x + 1;
+            while (end < W && row[end] == prov) ++end;
+            const int32_t root = find_root(parent, prov);
+            if (!remap[root]) {
+                comps.push_back({0, 0, 0, y, y + 1, x, end});
+                remap[root] = (int32_t)comps.size();
+            }
+            const int32_t l = remap[root];
+            std::fill(row + x, row + end, l);
+            const int64_t len = end - x;
+            Component& c = comps[l - 1];
+            c.count += len;
+            c.sum_y += (int64_t)y * len;
+            c.sum_x += (int64_t)(x + end - 1) * len / 2;
+            c.y1 = y + 1;  // rows arrive in order
+            c.x0 = std::min(c.x0, x); c.x1 = std::max(c.x1, end);
+            x = end;
+        }
+    }
+    const int n = (int)comps.size();
+    if (n <= cap) {
+        for (int i = 0; i < n; ++i) {
+            const Component& c = comps[i];
+            counts[i] = c.count;
+            sums[i * 2 + 0] = c.sum_y; sums[i * 2 + 1] = c.sum_x;
+            boxes[i * 4 + 0] = c.y0; boxes[i * 4 + 1] = c.y1;
+            boxes[i * 4 + 2] = c.x0; boxes[i * 4 + 3] = c.x1;
+        }
+    }
+    return n;
 }
 
 // ---------------------------------------------------------------------------

@@ -6,10 +6,13 @@ the accuracy tools call).
 Connected components are labelled by the native CCL (native.py, the
 port's copy of the JAX package's C++), which numbers them as
 `scipy.ndimage.label` does, as the JAX package labels wherever its
-library is built; rotations use `ndimage.rotate`, as the JAX package
-does by default (`USE_NATIVE_ROTATE`).  The crop stages fan out over a
-thread pool (the JAX package's default backend): their hot loops are
-numpy, scipy and the native calls, which release the interpreter lock.
+library is built.  The line planner takes each band component's box and
+centre from the labelling pass itself (`layer_components`), where the
+JAX package builds a mask per component: the same plans.  Rotations use
+`ndimage.rotate`, as the JAX package does by default
+(`USE_NATIVE_ROTATE`).  The crop stages fan out over a thread pool (the
+JAX package's default backend): their hot loops are numpy, scipy and the
+native calls, which release the interpreter lock.
 
 `ndimage.find_objects` takes integer labels only on newer scipy, so
 every bounding box of a boolean mask goes through `bbox`.
@@ -49,6 +52,24 @@ def label_layer(layer):
         return [labels == l_id + 1 for l_id in range(cnt)]
     labels, cnt = ndimage.label(thresholded)
     return [labels == l_id + 1 for l_id in range(cnt)]
+
+
+def layer_components(layer):
+    """label_layer's components of a 2-D layer as statistics, without a
+    mask each: (boxes, centres), one (slice y, slice x) bbox per
+    component, in label_layer's order, and (n, 2) float64 centres, each
+    bit-equal to `_mask_centers` of its mask (native.label_stats)."""
+    layer = np.asarray(layer)
+    if layer.dtype == bool:
+        # a boolean layer's mean is its share of set pixels, which every
+        # set pixel exceeds unless all of them are set
+        _, n, counts, centres, boxes = native.label_stats(layer)
+        if n == 1 and counts[0] == layer.size:
+            n = 0
+    else:
+        _, n, _, centres, boxes = native.label_stats(layer > np.mean(layer))
+    return ([(slice(y0, y1), slice(x0, x1))
+             for y0, y1, x0, x1 in boxes[:n].tolist()], centres[:n])
 
 
 def rotate_array(array, angle=None, good_rotation=True):
@@ -171,34 +192,40 @@ def _orientation_code(dy, dx):
     return None
 
 
-#: Reading-order sort key per orientation: coordinate axis and direction
-#: along which line centers increase in reading order.
-_ORIENTATION_KEYS = {None: (1, +1), 180: (1, -1), 270: (2, +1), 90: (2, -1)}
+#: Reading-order sort key per orientation: coordinate axis (0 y, 1 x) and
+#: direction along which line centers increase in reading order.
+_ORIENTATION_KEYS = {None: (0, +1), 180: (0, -1), 270: (1, +1), 90: (1, -1)}
 
 
-def rearrange_lines(lines_top, lines_bottom):
-    """Match top/bottom line bands by center-of-mass proximity, infer the
-    text orientation (0/90/180/270), and sort lines in reading order
-    (reference interpreter.py:42-82)."""
-    if not lines_top or not lines_bottom:
-        # Degenerate detection (e.g. untrained Line model): no lines.
+def pair_lines(top_boxes, cm_top, bottom_boxes, cm_bottom):
+    """The JAX package's rearrange_lines (reference interpreter.py:42-82)
+    on per-component statistics of the two band channels: each top band
+    picks the bottom band nearest by centre, the first pair's displacement
+    gives the text orientation (0/90/180/270), both channels are sorted in
+    reading order and zipped, and each zipped pair gives its union bbox.
+    boxes: (slice y, slice x) per component; cm_*: (n, 2) (y, x) centres.
+    Returns (line bboxes, the bottom each line's top picked, rotation)."""
+    if not len(top_boxes) or not len(bottom_boxes):
+        # degenerate detection (e.g. an untrained Line model): no lines
         return [], [], None
+    d = np.linalg.norm(cm_top[:, None, :] - cm_bottom[None, :, :], axis=-1)
+    pick = d.argmin(axis=1)
+    bottom_boxes = [bottom_boxes[i] for i in pick]
+    cm_bottom = cm_bottom[pick]
 
-    cm_top = np.asarray(_mask_centers(lines_top))
-    pick = _nearest(cm_top, _mask_centers(lines_bottom))
-    lines_bottom = [lines_bottom[i] for i in pick]
-    cm_bottom = np.asarray(_mask_centers(lines_bottom))
-
-    # (1, H, W, 1) masks: component 1 is y, component 2 is x
     delta = cm_top[0] - cm_bottom[0]
-    rotation = _orientation_code(delta[1], delta[2])
-
+    rotation = _orientation_code(delta[0], delta[1])
     axis, sign = _ORIENTATION_KEYS[rotation]
     order_top = np.argsort(sign * cm_top[:, axis], kind='stable')
     order_bottom = np.argsort(sign * cm_bottom[:, axis], kind='stable')
-    return ([lines_top[i] for i in order_top],
-            [lines_bottom[i] for i in order_bottom],
-            rotation)
+    bboxes, picks = [], []
+    for ti, bi in zip(order_top, order_bottom):
+        ty, tx = top_boxes[ti]
+        by, bx = bottom_boxes[bi]
+        picks.append(int(pick[ti]))
+        bboxes.append((slice(min(ty.start, by.start), max(ty.stop, by.stop)),
+                       slice(min(tx.start, bx.start), max(tx.stop, bx.stop))))
+    return bboxes, picks, rotation
 
 
 def get_sort_ids(center, vector, array):
@@ -392,28 +419,30 @@ class CropAndRotateParagraphs(StagePool):
                 for image_id in range(len(images))]
 
 
-def plan_paragraph_lines(band_pred, thresholded_input=False):
-    """One paragraph's line-band prediction -> (bboxes, rotation):
-    threshold both band channels at 0.5 * (mean + max) (or take them as
-    thresholded masks), label them, pair and order them
-    (rearrange_lines), and take each pair's union bbox."""
-    def threshold(channel):
+def band_components(band_pred, thresholded_input=False):
+    """One paragraph's (1, H, W, 2) line-band prediction -> the (boxes,
+    centres) of both channels' components (top, bottom): each channel
+    thresholded at 0.5 * (mean + max) (or taken as a thresholded mask),
+    then label_layer's components of it as statistics."""
+    stats = []
+    for c in (0, 1):
+        channel = band_pred[:, :, :, c:c + 1]
         if thresholded_input:
-            return channel > 0
-        return channel > 0.5 * (np.mean(channel) + np.max(channel))
+            mask = channel > 0
+        else:
+            mask = channel > 0.5 * (np.mean(channel) + np.max(channel))
+        stats.append(layer_components(mask[0, :, :, 0]))
+    return stats
 
-    tops, bottoms, rotation = rearrange_lines(
-        label_layer(threshold(band_pred[:, :, :, 0:1])),
-        label_layer(threshold(band_pred[:, :, :, 1:2])))
-    bboxes = []
-    for top, bottom in zip(tops, bottoms):
-        _, top_y, top_x, _ = bbox(top)
-        _, bot_y, bot_x, _ = bbox(bottom)
-        bboxes.append((
-            slice(min(top_y.start, bot_y.start),
-                  max(top_y.stop, bot_y.stop)),
-            slice(min(top_x.start, bot_x.start),
-                  max(top_x.stop, bot_x.stop))))
+
+def plan_paragraph_lines(band_pred, thresholded_input=False):
+    """One paragraph's line-band prediction -> (bboxes, rotation): both
+    channels' components (band_components), paired and ordered
+    (pair_lines)."""
+    (top_boxes, cm_top), (bottom_boxes, cm_bottom) = band_components(
+        band_pred, thresholded_input)
+    bboxes, _, rotation = pair_lines(top_boxes, cm_top, bottom_boxes,
+                                     cm_bottom)
     return bboxes, rotation
 
 

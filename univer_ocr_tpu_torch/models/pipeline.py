@@ -99,11 +99,10 @@ from scipy import ndimage
 
 from .. import native, ops
 from ..device import resolve_device
-from ..interpreter import (_ORIENTATION_KEYS, _extremal_coords,
-                           _orientation_code, bbox, deskew_paragraph,
-                           extract_line, find_rotation_angle, label_layer,
-                           plan_paragraph_lines, pred_ids_to_text,
-                           rotate_array, select_paragraph)
+from ..interpreter import (_extremal_coords, band_components, bbox,
+                           deskew_paragraph, extract_line,
+                           find_rotation_angle, layer_components, pair_lines,
+                           pred_ids_to_text, rotate_array)
 from ..ops.kernels import fused_monochrome
 from ..parallel.mesh import Replicated, mesh_device, replicate, to_device
 from ..parallel.serving import shard_cascade_stage, shard_fn_over_batch
@@ -137,20 +136,37 @@ SUSPECT_BITS = ('merge', 'cross', 'table_of', 'lines_of', 'pool_of',
 
 def crop_lines_of_paragraph(line_pred, mono_crop, zoomed_height,
                             minimal_width, thresholded_input=False,
-                            step=contextlib.nullcontext):
+                            timers=None):
     """Line bands of one paragraph -> list of zoomed line crops of the
     monochrome image.  `thresholded_input` marks line_pred as already
-    thresholded band masks (the device-side threshold).  `step(name)`
-    gives the context the line plan ('line_plan') and each line's crop
-    ('line_extract') run in: `OCRPipeline._step`, or none."""
-    with step('line_plan'):
-        bboxes, rotation = plan_paragraph_lines(line_pred, thresholded_input)
+    thresholded band masks (the device-side threshold).  With `timers`
+    (`OCRPipeline.timers`) the line plan ('line_plan', plan_paragraph_lines
+    in its two parts) and each line's crop ('line_extract') are host CV
+    steps, and the plan counts the band components it summarised
+    ('line_plan_components')."""
+    with _host_cv_step(timers, 'line_plan'):
+        (top_boxes, cm_top), (bottom_boxes, cm_bottom) = band_components(
+            line_pred, thresholded_input)
+        bboxes, _, rotation = pair_lines(top_boxes, cm_top, bottom_boxes,
+                                         cm_bottom)
+        if timers is not None:
+            timers.add('line_plan_components',
+                       len(top_boxes) + len(bottom_boxes))
     lines = []
     for b in bboxes:
-        with step('line_extract'):
+        with _host_cv_step(timers, 'line_extract'):
             lines.append(extract_line(mono_crop, b, rotation, zoomed_height,
                                       minimal_width))
     return lines
+
+
+def _host_cv_step(timers, name):
+    """A host CV step of a pool task: its span and its thread's CPU
+    seconds, or no context without timers.  The steps of a task cover all
+    of its work."""
+    if timers is None:
+        return contextlib.nullcontext()
+    return _thread_cpu_span(timers, name)
 
 
 @contextlib.contextmanager
@@ -162,6 +178,13 @@ def _thread_cpu_span(timers, name):
         yield
         cpu = time.thread_time() - cpu
     timers.add('host_cv_thread_cpu', cpu)
+
+
+def _table_boxes(rows):
+    """(slice y, slice x) bboxes of blob table rows [count, y0, y1, x0, x1,
+    ...]."""
+    return [(slice(int(r[1]), int(r[2])), slice(int(r[3]), int(r[4])))
+            for r in rows]
 
 
 def _to_u8(x):
@@ -332,14 +355,6 @@ class OCRPipeline:
         if self.timers is None:
             return contextlib.nullcontext()
         return self.timers.track(name)
-
-    def _step(self, name):
-        """A host CV step of a pool task: its span and its thread's CPU
-        seconds.  The steps of a task cover all of its work."""
-        timers = self.timers
-        if timers is None:
-            return contextlib.nullcontext()
-        return _thread_cpu_span(timers, name)
 
     # -- transfers ---------------------------------------------------------
     def _tensor(self, arr):
@@ -593,17 +608,21 @@ class OCRPipeline:
         return results
 
     def _crop_page(self, mono_pred, para_mask):
-        """Label the thresholded paragraph mask (native CCL), crop and
-        deskew the monochrome prediction (crop_and_rotate_single_paragraph
-        in its two steps)."""
-        with self._step('para_label'):
-            labels, cnt = native.label(para_mask[0, :, :, 0] > 0)
+        """Label the thresholded paragraph mask with each component's box
+        (native.label_stats), then crop and deskew the monochrome
+        prediction (crop_and_rotate_single_paragraph in its two steps:
+        select_paragraph's crop, formed inside the paragraph's box alone,
+        then deskew_paragraph)."""
+        timers = self.timers
+        with _host_cv_step(timers, 'para_label'):
+            labels, _, _, _, boxes = native.label_stats(
+                para_mask[0, :, :, 0] > 0)
         crops = []
-        for l_id in range(cnt):
-            with self._step('para_select'):
-                mask, selected = select_paragraph(
-                    (labels == l_id + 1)[None, :, :, None], [mono_pred])
-            with self._step('para_deskew'):
+        for l_id, (y0, y1, x0, x1) in enumerate(boxes.tolist(), start=1):
+            with _host_cv_step(timers, 'para_select'):
+                mask = (labels[y0:y1, x0:x1] == l_id)[None, :, :, None]
+                selected = [mono_pred[:, y0:y1, x0:x1, :] * mask]
+            with _host_cv_step(timers, 'para_deskew'):
                 (crop,) = deskew_paragraph(mask, selected)
                 crops.append(make_divisible_by(crop, 16, 16))
         return crops
@@ -612,7 +631,7 @@ class OCRPipeline:
         """One paragraph's zoomed line crops."""
         return crop_lines_of_paragraph(
             line_pred, crop, CHAR_INPUT_HEIGHT, CHAR_FIXED_WIDTH,
-            thresholded_input=self.quantized_transfers, step=self._step)
+            thresholded_input=self.quantized_transfers, timers=self.timers)
 
     def _run_line_batched(self, crops):
         """All paragraph crops (flat list) -> line predictions, or band
@@ -819,29 +838,9 @@ class OCRPipeline:
             })
         return plans
 
-    @staticmethod
-    def _band_blob_stats(mask2d):
-        """label_layer semantics on one band channel without a full-size
-        mask per blob: one labels pass, then per-blob bboxes and centres
-        of mass."""
-        thresholded = mask2d > np.mean(mask2d)
-        labels, cnt = native.label(thresholded)
-        if cnt == 0:
-            return [], np.zeros((0, 2))
-        bboxes = ndimage.find_objects(labels, cnt)
-        # centres bit-identical to the host path's per-mask
-        # np.argwhere(mask).mean(axis=0): one raster-order argwhere
-        # grouped by label, np.mean over each group (the same values in
-        # the same order, so near-tie pairings cannot diverge)
-        coords = np.argwhere(thresholded)
-        lab = labels[thresholded]
-        order = np.argsort(lab, kind='stable')
-        coords = coords[order].astype(float)
-        ends = np.searchsorted(lab[order], np.arange(2, cnt + 2))
-        starts = np.concatenate([[0], ends[:-1]])
-        centers = np.stack([coords[a:b].mean(axis=0)
-                            for a, b in zip(starts, ends)])
-        return bboxes, centers
+    #: label_layer semantics on one band channel: per-blob bboxes and
+    #: centres of mass from one labelling pass
+    _band_blob_stats = staticmethod(layer_components)
 
     def _plan_lines(self, bands):
         """Line gather plans from one paragraph's thresholded (H, W, 2)
@@ -855,32 +854,11 @@ class OCRPipeline:
     @classmethod
     def _pair_lines(cls, top_boxes, cm_top, bottom_boxes, cm_bottom,
                     merge_fragments=False):
-        """Pairing, orientation and reading order (rearrange_lines) on
-        per-blob (bbox slices, centres) of both channels, shared by the
-        mask, table and profile planners.  Returns (line bboxes, rot90
-        code)."""
-        if not len(top_boxes) or not len(bottom_boxes):
-            return [], 0
-        d = np.linalg.norm(cm_top[:, None, :] - cm_bottom[None, :, :],
-                           axis=-1)
-        pick = d.argmin(axis=1)
-        bottom_boxes = [bottom_boxes[i] for i in pick]
-        cm_bottom = cm_bottom[pick]
-
-        delta = cm_top[0] - cm_bottom[0]
-        rotation = _orientation_code(delta[0], delta[1])
-        axis, sign = _ORIENTATION_KEYS[rotation]
-        order_top = np.argsort(sign * cm_top[:, axis - 1], kind='stable')
-        order_bottom = np.argsort(sign * cm_bottom[:, axis - 1],
-                                  kind='stable')
-        bboxes, picks = [], []
-        for ti, bi in zip(order_top, order_bottom):
-            ty, tx = top_boxes[ti]
-            by_, bx_ = bottom_boxes[bi]
-            picks.append(int(pick[ti]))
-            bboxes.append((
-                slice(min(ty.start, by_.start), max(ty.stop, by_.stop)),
-                slice(min(tx.start, bx_.start), max(tx.stop, bx_.stop))))
+        """pair_lines for the mask, table and profile planners, with
+        `merge_fragments` uniting the lines whose tops picked the same
+        bottom.  Returns (line bboxes, rot90 code)."""
+        bboxes, picks, rotation = pair_lines(top_boxes, cm_top,
+                                             bottom_boxes, cm_bottom)
         if merge_fragments:
             bboxes = cls._merge_line_bboxes(bboxes, picks)
         return bboxes, rotation
@@ -989,28 +967,11 @@ class OCRPipeline:
             return []
         top = tbl[axis, :n_top, :, 0]
         bottom = tbl[axis, :n_bottom, :, 1]
-        cm_top, cm_bottom = top[:, 5:7], bottom[:, 5:7]
-        d = np.linalg.norm(cm_top[:, None, :] - cm_bottom[None, :, :],
-                           axis=-1)
-        pick = d.argmin(axis=1)
-        bottom = bottom[pick]
-        cm_bottom = cm_bottom[pick]
-
-        delta = cm_top[0] - cm_bottom[0]
-        rotation = _orientation_code(delta[0], delta[1])
-        ax, sign = _ORIENTATION_KEYS[rotation]
-        order_top = np.argsort(sign * cm_top[:, ax - 1], kind='stable')
-        order_bottom = np.argsort(sign * cm_bottom[:, ax - 1], kind='stable')
-        bboxes, picks = [], []
-        for ti, bi in zip(order_top, order_bottom):
-            t, b = top[ti], bottom[bi]
-            picks.append(int(pick[ti]))
-            bboxes.append((
-                slice(int(min(t[1], b[1])), int(max(t[2], b[2]))),
-                slice(int(min(t[3], b[3])), int(max(t[4], b[4])))))
         # two tops picking the same bottom are one line: without the merge
         # the page decodes the same glyphs twice
-        bboxes = self._merge_line_bboxes(bboxes, picks)
+        bboxes, rotation = self._pair_lines(
+            _table_boxes(top), top[:, 5:7], _table_boxes(bottom),
+            bottom[:, 5:7], merge_fragments=True)
         return self._plans_from_bboxes(bboxes, rotation)
 
     @staticmethod

@@ -1,6 +1,8 @@
 """Native host CV (univer_ocr_tpu/native): 4-connectivity labels, their
 bounding boxes, rotation with expansion and nearest-neighbour zoom in C++,
-bound with ctypes, with the JAX package's signatures and return types.
+bound with ctypes, with the JAX package's signatures and return types;
+and the port's own `label_stats`, the labels with every component's
+pixel count, centre and box from the same pass.
 
 The source is the port's own copy, `csrc/host/univocr_native.cpp`.  At
 first use one `g++` with the JAX package's Makefile flags builds it into
@@ -78,6 +80,10 @@ def library():
     lib.ccl_4conn.restype = c_int
     lib.ccl_4conn.argtypes = [ctypes.POINTER(ctypes.c_uint8), c_int, c_int,
                               i32p]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.ccl_4conn_stats.restype = c_int
+    lib.ccl_4conn_stats.argtypes = [ctypes.POINTER(ctypes.c_uint8), c_int,
+                                    c_int, i32p, c_int, i64p, i64p, i32p]
     lib.label_bboxes.restype = None
     lib.label_bboxes.argtypes = [i32p, c_int, c_int, c_int, i32p]
     lib.rotated_size.restype = None
@@ -108,6 +114,36 @@ def label(mask):
     n = library().ccl_4conn(_ptr(mask, ctypes.c_uint8), H, W,
                             _ptr(labels, ctypes.c_int32))
     return labels, n
+
+
+def label_stats(mask):
+    """`label`'s labels and count, and each component's statistics,
+    gathered while it labels: (labels, n, counts, centres, boxes), with
+    component l at row l - 1 of counts (n,) int64 (its pixels), centres
+    (n, 2) float64 (the mean (y, x) of its pixels: integer sums over the
+    count, so bit-equal to `np.argwhere(labels == l).mean(axis=0)`) and
+    boxes (n, 4) int32 (ymin, ymax, xmin, xmax, the stops exclusive: the
+    boxes of `find_objects`).  Room is made for 64 components; a mask
+    with more is labelled again with room for all of them."""
+    mask = np.ascontiguousarray(mask)
+    mask = (mask.view(np.uint8) if mask.dtype == bool
+            else np.ascontiguousarray(mask, dtype=np.uint8))
+    H, W = mask.shape
+    labels = np.empty((H, W), dtype=np.int32)
+    cap = 64
+    while True:
+        counts = np.empty(cap, np.int64)
+        sums = np.empty((cap, 2), np.int64)
+        boxes = np.empty((cap, 4), np.int32)
+        n = library().ccl_4conn_stats(
+            _ptr(mask, ctypes.c_uint8), H, W, _ptr(labels, ctypes.c_int32),
+            cap, _ptr(counts, ctypes.c_int64), _ptr(sums, ctypes.c_int64),
+            _ptr(boxes, ctypes.c_int32))
+        if n <= cap:
+            break
+        cap = n
+    counts = counts[:n]
+    return labels, n, counts, sums[:n] / counts[:, None], boxes[:n]
 
 
 def find_objects(labels, n):

@@ -50,11 +50,12 @@ class StageTimers:
                 self.totals[name] += elapsed
                 self.counts[name] += 1
 
-    def add(self, name, seconds):
-        """Count `seconds` under `name` beside the spans: a quantity that is
-        no wall interval (the pipeline's `host_cv_thread_cpu`)."""
+    def add(self, name, value):
+        """Count `value` under `name` beside the spans: a quantity that is
+        no wall interval (the pipeline's `host_cv_thread_cpu` seconds and
+        `line_plan_components`)."""
         with self._lock:
-            self.totals[name] += seconds
+            self.totals[name] += value
             self.counts[name] += 1
 
     def summary(self):
