@@ -1,22 +1,21 @@
 """The port's OCRPipeline in the device cascade's parity mode
-(`device_cascade=True, exact_bands=True`, sampler 'gather') and tables
-mode (`exact_bands=False`, sampler 'twopass', `fused_tail=False`) against
-the JAX package's, and what came with these modes: stage timers, the
-escalation counters, the plain versions in the pipeline's precision on
-the CPU, random initialisation and the TF32 switches across threads.
+(`device_cascade=True, exact_bands=True`) and tables mode
+(`exact_bands=False`, `fused_tail=False`) against the host cascade, and
+what came with these modes: stage timers, the planning counters and host
+syncs, the plain versions in the pipeline's precision on the CPU, random
+initialisation and the TF32 switches across threads.
 
-Text is compared by the flip budget of tests/test_pipeline.py (test
+The device cascade computes the host cascade's crops (its deskew and its
+line zoom, in scipy's float64 geometry) and plans its lines from the same
+band components, so in 'highest' its text is the host cascade's, held to
+exact equality with the text the fixture stores (`texts`, the JAX host
+cascade's, which the port's host cascade reproduces).  In 'bf16' the
+device cascade's Line batches differ from the host cascade's, and text is
+compared by the flip budget of tests/test_pipeline.py (test
 `test_device_cascade_matches_host_pipeline`): the same structure (pages,
 paragraphs, lines), every differing block of the per-page text at most 3
-characters, and at most max(8, len // 200) differing characters a page.
-Float32 sums in another order can flip a pixel that sits on a threshold;
-each such flip perturbs a column or two of one line.  Measured on the CPU
-(4 fixture pages): the port's text equals the JAX text exactly, in both
-cascades, both device modes (and the two mixed combinations of
-`exact_bands` and sampler) and both precisions, and the device cascade's
-text equals the port's host cascade with unquantized transfers exactly.
-The tables mode's text is held to exact equality with the JAX text in
-the fixture (`tables_texts`), as measured."""
+characters, and at most max(8, len // 200) differing characters a
+page."""
 
 import json
 import threading
@@ -44,9 +43,12 @@ from test_torch_fixture import N_PAGES, PAGE_SHAPE, load_fixture
 DEVICE_STAGES = {'pull_para_bits', 'host_paragraph_plans',
                  'dispatch_paragraph_stage', 'pull_band_masks',
                  'host_line_plans', 'dispatch_line_stage', 'pull_char_ids',
-                 'decode_text'}
-#: the tables mode's: the payload pull replaces the band-mask pull
-TABLES_STAGES = DEVICE_STAGES - {'pull_band_masks'} | {'pull_band_tables'}
+                 'decode_text', 'host_sync'}
+#: the tables mode's: the tables pull replaces the band-mask pull, and the
+#: labelling launches are timed and their components counted
+TABLES_STAGES = (DEVICE_STAGES - {'pull_band_masks'}
+                 | {'pull_band_tables', 'band_components',
+                    'band_components_labelled'})
 #: the host cascade's, named after its device stages where it has them
 HOST_STAGES = {'pull_front', 'host_paragraph_crops', 'line_masks',
                'host_line_crops', 'char_ids', 'decode_text'}
@@ -112,7 +114,7 @@ def tables_run(weights, pages):
     stage timers on: (texts, timers, timeline, escalation_stats,
     host_syncs)."""
     with _port(weights, device_cascade=True, fused_tail=False) as pipeline:
-        assert pipeline.band_tables and pipeline.sampler == 'twopass'
+        assert pipeline.band_tables and not pipeline.fused_tail
         pipeline.timers = StageTimers()
         texts = pipeline.ocr_pages(pages)
         return (texts, pipeline.timers, pipeline.timeline,
@@ -120,78 +122,80 @@ def tables_run(weights, pages):
 
 
 def test_tables_mode_matches_jax_tables_text(tables_run):
-    """Against the JAX tables mode's text stored in the fixture: equal."""
-    _, expected = load_fixture('tables_texts')
+    """Against the host cascade's text stored in the fixture: equal."""
+    _, expected = load_fixture()
     got = tables_run[0]
     assert sum(len(lines) for page in got for lines in page) > 0
     assert got == expected
 
 
 def test_tables_mode_stage_timers_and_counters(tables_run):
-    """The payload pull is timed where the band-mask pull was; every
-    paragraph is counted by the escalation counters (JAX's counts on
-    these pages: 32 paragraphs, no suspect, no cross-axis escalation);
-    each paragraph launch counts one suspect check among its syncs."""
+    """The tables pull is timed where the band-mask pull was; every
+    paragraph is counted (32 on these pages, none planned from its band
+    masks); each paragraph launch times one labelling launch and counts
+    its components, and every blocking pull is one host sync."""
     texts, timers, timeline, stats, syncs = tables_run
     summary = timers.summary()
     assert set(summary) == TABLES_STAGES
     assert summary['pull_para_bits']['count'] == N_PAGES // 2
-    assert {tag for tag, *_ in timeline} == {'para_bits', 'bands',
+    assert {tag for tag, *_ in timeline} == {'para_bits', 'tables',
                                              'char_ids'}
     assert stats == {'paragraphs': sum(len(page) for page in texts),
-                     'suspect': 0, 'cross_axis': 0}
+                     'host_planned': 0, 'table_of': 0}
     assert stats['paragraphs'] == 32
-    launches = sum(tag == 'bands' for tag, *_ in timeline)
-    assert launches > 0 and syncs['suspect_check'] == launches
-    assert set(syncs) <= {'suspect_check', 'grid_ccl_block'}
+    launches = sum(tag == 'tables' for tag, *_ in timeline)
+    assert launches > 0 and syncs['tables'] == launches
+    assert summary['band_components']['count'] == launches
+    assert summary['band_components_labelled']['count'] == launches
+    lines = sum(len(lines) for page in texts for lines in page)
+    assert timers.totals['band_components_labelled'] >= 2 * lines
+    assert set(syncs) == {'para_bits', 'tables', 'char_ids'}
+    assert summary['host_sync']['count'] == sum(syncs.values())
 
 
-def test_tables_mode_without_escalation(weights, pages):
-    """escalation=False plans every paragraph from its tables; no
-    escalation fires on these pages, so the text is the same."""
-    _, expected = load_fixture('tables_texts')
-    with _port(weights, device_cascade=True, fused_tail=False,
-               escalation=False) as pipeline:
-        assert pipeline.ocr_pages(pages[:2]) == expected[:2]
-        assert pipeline.escalation_stats['paragraphs'] == sum(
-            len(page) for page in expected[:2])
+@pytest.mark.parametrize('cap', [1, 2, 3])
+def test_tables_mode_plans_overflowing_tables_from_bands(weights, pages,
+                                                         monkeypatch, cap):
+    """A paragraph with more band components in a channel than its table
+    holds is planned on the host from its pulled band masks: the text is
+    the same, and each such paragraph is counted."""
+    from univer_ocr_tpu_torch.models import band_tables
+    _, expected = load_fixture()
+    monkeypatch.setattr(band_tables, 'MAX_BAND_COMPONENTS', cap)
+    with _port(weights, device_cascade=True, fused_tail=False) as pipeline:
+        assert pipeline.ocr_pages(pages[:1]) == expected[:1]
+        stats = pipeline.escalation_stats
+        assert stats['paragraphs'] == len(expected[0])
+        assert 0 < stats['host_planned'] == stats['table_of']
+        assert pipeline.host_syncs['bands'] > 0
 
 
-@pytest.mark.parametrize('exact_bands,sampler', [(False, 'gather'),
-                                                 (True, 'twopass')])
-def test_mixed_mode_combinations_match_jax(weights, pages, exact_bands,
-                                           sampler):
-    """The two combinations of `exact_bands` and sampler the fixture does
-    not hold, on one page against the JAX package's."""
-    kwargs = dict(device_cascade=True, exact_bands=exact_bands,
-                  sampler=sampler, fused_tail=False)
-    jax_pipeline = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2,
-                               workers=2, collapse_runs=4,
-                               precision='highest', use_pallas=False,
-                               **kwargs)
-    expected = jax_pipeline.ocr_pages(pages[:1])
-    with _port(weights, **kwargs) as pipeline:
-        got = pipeline.ocr_pages(pages[:1])
-        assert pipeline.escalation_stats == jax_pipeline.escalation_stats
-    assert sum(len(lines) for page in got for lines in page) > 0
-    assert_within_flip_budget(got, expected)
+@pytest.mark.parametrize('chunk', [1, 3])
+def test_device_modes_equal_host_cascade_at_any_chunk(weights, pages, chunk):
+    """Chunks of 1 page and of 3 (a tail chunk of 2, padded with a blank
+    page): the parity and tables modes read the host cascade's text."""
+    _, expected = load_fixture()
+    for kwargs in (dict(exact_bands=True), dict(fused_tail=False)):
+        with _port(weights, chunk=chunk, device_cascade=True,
+                   **kwargs) as pipeline:
+            assert pipeline.ocr_pages(pages[:2]) == expected[:2], kwargs
 
 
 def test_device_cascade_matches_jax_device_cascade(device_run):
-    """Against the JAX device cascade's text stored in the fixture
-    (exact_bands=True, 'highest', collapse_runs=4, on the CPU)."""
-    _, expected = load_fixture('device_texts')
+    """Against the host cascade's text stored in the fixture ('highest',
+    collapse_runs=4, on the CPU): equal."""
+    _, expected = load_fixture()
     got, _, _ = device_run
     assert len(got) == N_PAGES
     assert sum(len(lines) for page in got for lines in page) > 0
-    assert_within_flip_budget(got, expected)
+    assert got == expected
 
 
 def test_device_cascade_matches_port_host_cascade(weights, pages,
                                                   device_run):
-    with _port(weights, quantized_transfers=False) as host:
+    with _port(weights) as host:
         expected = host.ocr_pages(pages)
-    assert_within_flip_budget(device_run[0], expected)
+    assert device_run[0] == expected
 
 
 def test_device_cascade_stage_timers(device_run):
@@ -282,19 +286,22 @@ def test_host_cascade_text_same_with_or_without_timers(host_run, pages):
 
 @pytest.mark.parametrize('cascade', ['host', 'device', 'tables'])
 def test_bf16_matches_jax_plain_bf16(weights, pages, cascade):
-    """'bf16' against JAX `use_pallas=False` 'bf16' (bf16 operands, float32
-    sums in both), on two fixture pages; in the tables mode the escalation
-    counters too."""
+    """'bf16': the host cascade against JAX `use_pallas=False` 'bf16'
+    (bf16 operands, float32 sums in both), the device cascade's parity
+    and tables modes against the port's host cascade in 'bf16', on two
+    fixture pages."""
     kwargs = dict(device_cascade=cascade != 'host',
                   exact_bands=cascade == 'device', fused_tail=False)
-    jax_pipeline = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2,
+    if cascade == 'host':
+        expected = JaxPipeline(PAGE_SHAPE, weights=weights, chunk=2,
                                workers=2, collapse_runs=4, precision='bf16',
-                               use_pallas=False, **kwargs)
-    expected = jax_pipeline.ocr_pages(pages[:2])
+                               use_pallas=False).ocr_pages(pages[:2])
+    else:
+        with _port(weights, precision='bf16') as host:
+            expected = host.ocr_pages(pages[:2])
     with _port(weights, precision='bf16', **kwargs) as pipeline:
         assert pipeline.mono_weights is None and pipeline.char_head == 'xla'
         got = pipeline.ocr_pages(pages[:2])
-        assert pipeline.escalation_stats == jax_pipeline.escalation_stats
     assert sum(len(lines) for page in got for lines in page) > 0
     assert_within_flip_budget(got, expected)
 
@@ -308,8 +315,7 @@ def test_tf32_switches_hold_on_every_thread(weights, pages, precision):
     seen = []
     with _port(weights, chunk=1, device_cascade=True, exact_bands=True,
                precision=precision) as pipeline:
-        for name in ('front_resident', 'stage_rot_blob', 'stage_rot_res',
-                     'line_stage'):
+        for name in ('front_resident', 'paragraph_launch', 'line_stage'):
             def spy(*args, _fn=getattr(pipeline, name), _name=name):
                 seen.append((_name, threading.current_thread().name,
                              torch.backends.cudnn.allow_tf32,
@@ -329,7 +335,7 @@ def test_tf32_switches_hold_on_every_thread(weights, pages, precision):
              torch.backends.cuda.matmul.allow_tf32) = saved
     assert after == (not want, not want)
     assert {name for name, *_ in seen} == {
-        'front_resident', 'stage_rot_blob', 'stage_rot_res', 'line_stage'}
+        'front_resident', 'paragraph_launch', 'line_stage'}
     threads = {thread for _, thread, *_ in seen}
     assert 'ocr-dispatcher' in threads and len(threads) >= 2
     assert all((cudnn, matmul) == (want, want)
@@ -361,7 +367,7 @@ def _glyph_payload(batch, lines):
         n_glyphs[slot], para[slot] = len(ids), b
         n_lines[b] += 1
     return np.concatenate([glyphs.reshape(-1), n_glyphs, para, n_lines,
-                           np.zeros(batch, np.uint8)])
+                           np.zeros(3 * batch, np.uint8)])
 
 
 @pytest.mark.parametrize('kwargs', [
@@ -383,15 +389,16 @@ def test_fused_combinations_and_the_shard_merge(kwargs):
     rs = np.random.RandomState(0)
     lines = [(b, rs.randint(1, 162, rs.randint(1, 30)))
              for b in range(6) for _ in range(rs.randint(1, 4))]
-    texts, suspects = fused_tail.unpack_fused_payload(
+    texts, flags, comps = fused_tail.unpack_fused_payload(
         _glyph_payload(8, lines), 6)
     shards = np.concatenate([
         _glyph_payload(4, [(b, ids) for b, ids in lines if b < 4]),
         _glyph_payload(4, [(b - 4, ids) for b, ids in lines if b >= 4])])
-    merged, merged_suspects = fused_tail.unpack_fused_payload(shards, 6,
-                                                              n_shards=2)
+    merged, merged_flags, merged_comps = fused_tail.unpack_fused_payload(
+        shards, 6, n_shards=2)
     assert merged == texts and all(texts)
-    np.testing.assert_array_equal(merged_suspects, suspects)
+    np.testing.assert_array_equal(merged_flags, flags)
+    np.testing.assert_array_equal(merged_comps, comps)
 
 
 def test_cpu_runs_plain_versions_in_the_pipeline_precision(monkeypatch):

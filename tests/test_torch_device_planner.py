@@ -1,29 +1,20 @@
 """The port's device paragraph planners (univer_ocr_tpu_torch.models.
-device_cascade: the page CCL of band_tables.grid_ccl_labels with the row
-scans, device_page_plans, device_chunk_plans) against the JAX package's
-and against the port's host planner, and the two paths of the serving
-default that run them: chunks through the device planner, and one page
-through the single-page chain.
+device_cascade: the page labels of the band_ccl kernel's plain version,
+device_page_plans, device_chunk_plans) against scipy and the port's host
+planner, and the two paths of the serving default that run them: chunks
+through the device planner, and one page through the single-page chain.
 
 Bars:
-  * labels, component counts, the convergence flag and every integer
-    plan field: exactly equal to JAX's, on generated masks at 288x432
-    (level blocks, rotated bars on both sides of 45 degrees, a comb and
-    a spiral for the CCL, and a page of 56 blobs for the per-page
-    fallback);
-  * float plan fields (cos, sin, off_y, off_x): equal to JAX's jitted
-    planners' too.  Both compute them in float32 from the same integer
-    geometry; the port reads the cosines and sines of the deskew grid
-    from a table of JAX's values (deskew_table.py, held to JAX here) and
-    takes a fused multiply-add where XLA's CPU backend contracts one;
-  * against the port's host planner (_page_paragraph_plans, float64):
-    integer fields equal, float fields within 1e-3, as
-    tests/test_single_page_chain.py holds JAX's;
-  * pipeline text on the fixture pages: exactly equal to the JAX text
-    stored in the fixture (`fused_texts`, `chain_texts`), with the
-    chain's fallback where JAX took it and nowhere else."""
+  * labels and component counts: exactly scipy's 4-connected labels
+    (less one), on generated masks at 288x432 (level blocks, rotated bars
+    on both sides of 45 degrees, a comb and a spiral, and a page of 56
+    blobs for the per-page fallback);
+  * every plan field: exactly the host planner's
+    (OCRPipeline._page_paragraph_plans: find_rotation_angle, the box of
+    scipy's order-0 rotation of the mask);
+  * pipeline text on the fixture pages: exactly the host cascade's text
+    stored in the fixture (`texts`), in one call and page by page."""
 
-import functools
 import json
 from collections import Counter
 
@@ -32,11 +23,7 @@ import pytest
 import torch
 from scipy import ndimage
 
-import jax
-import jax.numpy as jnp
-
-from univer_ocr_tpu.models import device_cascade as jdc
-from univer_ocr_tpu_torch.models import band_tables as tbt
+from univer_ocr_tpu_torch.interpreter import find_rotation_angle
 from univer_ocr_tpu_torch.models import device_cascade as tdc
 from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
 from univer_ocr_tpu_torch.utils.profiling import StageTimers
@@ -45,8 +32,7 @@ from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
 from test_torch_fixture import N_PAGES, PAGE_SHAPE, load_fixture
 
 SMALL = (1, 288, 432, 1)
-EIGHT = np.ones((3, 3), bool)
-FIELDS = tdc.PARAGRAPH_INT_FIELDS + tdc.PARAGRAPH_FLT_FIELDS
+FIELDS = tdc.PARAGRAPH_FIELDS
 
 
 def _t(a):
@@ -103,81 +89,79 @@ def _blob_grid(rows, cols, shape=SMALL, pitch=(44, 52)):
     return page
 
 
-def _scipy_labels(occ):
-    want = np.full(occ.shape, tbt._CCL_BIG, np.int64)
-    for b in range(occ.shape[0]):
-        ref, cnt = ndimage.label(occ[b], structure=EIGHT)
-        for blob in range(1, cnt + 1):
-            cells = np.argwhere(ref == blob)
-            want[b, cells[:, 0], cells[:, 1]] = (
-                cells[:, 0] * occ.shape[2] + cells[:, 1]).min()
-    return want
+def _scipy_ranks(mask):
+    """scipy's 4-connected labels of a 2-D mask, less one (-1 off it)."""
+    lab, cnt = ndimage.label(mask)
+    return lab.astype(np.int64) - 1, cnt
 
 
-def _jax_fields(plan):
-    """JAX plan rows -> {field: column}, its field names."""
-    names = jdc.PARAGRAPH_INT_FIELDS + jdc.PARAGRAPH_FLT_FIELDS
-    return {f: np.asarray(plan)[..., names.index(f)] for f in FIELDS}
+def _assert_plans_equal_host(plan, n_comp, host, where=''):
+    """The first n_comp device plan rows against the host planner's
+    dicts, field by field ('page' aside)."""
+    assert int(n_comp) == len(host), where
+    for k, hp in enumerate(host):
+        for ci, f in enumerate(FIELDS):
+            if f != 'page':
+                assert int(plan[k, ci]) == hp[f], (where, k, f)
 
 
-def _assert_plans_equal(plan, plan_j, where=''):
-    """Every field equal, by name."""
-    plan = plan.numpy()
-    fields_j = _jax_fields(plan_j)
-    for ci, f in enumerate(FIELDS):
-        np.testing.assert_array_equal(plan[..., ci], fields_j[f],
-                                      err_msg=f'{where} {f}')
-
-
-def test_deskew_tables_equal_jax():
-    """The planners' cosines and sines of the deskew grid: JAX's float32
-    cos and sin of deg2rad(0, 1, ..., 180), as its jitted planners
-    compute them."""
-    from univer_ocr_tpu_torch.models.deskew_table import COS_DEG, SIN_DEG
-    deg = np.arange(0.0, 181.0, 1.0, dtype=np.float32)
-    cos_j, sin_j = jax.jit(lambda a: (jnp.cos(jnp.deg2rad(a)),
-                                      jnp.sin(jnp.deg2rad(a))))(deg)
-    np.testing.assert_array_equal(np.asarray(COS_DEG, np.float32),
-                                  np.asarray(cos_j))
-    np.testing.assert_array_equal(np.asarray(SIN_DEG, np.float32),
-                                  np.asarray(sin_j))
+def test_deskew_degrees_equal_find_rotation_angle():
+    """The device's deskew search on each component's row extremes:
+    find_rotation_angle's degree (float64, the first minimum; 0 for
+    level) for bars at many angles and the generated pages."""
+    masks = list(_page_masks())
+    angles = (-44, -30, -7, -1, 0, 1, 2, 13, 45, 46, 60, 89, 90, 91)
+    for pair in range(0, len(angles), 2):
+        page = np.zeros((288, 432), bool)
+        for j, angle in enumerate(angles[pair:pair + 2]):
+            _paste(page, _rotated_bar(angle), 10, 10 + 210 * j)
+        masks.append(page)
+    K = 20
+    labels, stats, n = tdc.page_labels(_t(np.stack(masks)), K)
+    live = torch.arange(K)[None, :] < n[:, None]
+    got = tdc._deskew_degrees(labels, stats[..., 3].long(),
+                              stats[..., 5].long(), live, K)
+    for i, mask in enumerate(masks):
+        ranks, cnt = _scipy_ranks(mask)
+        assert cnt <= K
+        for k, sl in enumerate(ndimage.find_objects(ranks + 1)):
+            angle = find_rotation_angle(ranks[sl] == k)
+            assert int(got[i, k]) == (0 if angle is None else int(angle)), (
+                i, k)
 
 
 # ---------------------------------------------------------------------------
-# The page CCL
+# The page labels
 # ---------------------------------------------------------------------------
 
 
 def test_page_ccl_equals_scipy_and_jax():
+    """The page labels of the generated masks (a comb and a spiral among
+    them) are scipy's 4-connected labels, less one, and the statistics
+    table holds each component's pixel count and box."""
     masks = _page_masks()
-    syncs = Counter()
-    lab, converged = tdc._page_labels(_t(masks).float(), syncs=syncs)
-    lab_j, _, conv_j = jax.jit(functools.partial(
-        jdc.grid_ccl_labels, max_iters=jdc.PAGE_CCL_MAX_ITERS,
-        column_scan=True))(jnp.asarray(masks[..., None]))
-    assert converged and bool(conv_j)
-    np.testing.assert_array_equal(lab.numpy(), np.asarray(lab_j)[..., 0])
-    np.testing.assert_array_equal(lab.numpy(), _scipy_labels(masks))
-    assert tdc.PAGE_CCL_MAX_ITERS == jdc.PAGE_CCL_MAX_ITERS
-    assert set(syncs) == {'page_ccl_block'}
-    # the row scans converge the spiral within a block
-    assert syncs['page_ccl_block'] <= 2
+    labels, stats, n_comp = tdc.page_labels(_t(masks), 48)
+    for b, mask in enumerate(masks):
+        ranks, cnt = _scipy_ranks(mask)
+        assert int(n_comp[b]) == cnt
+        np.testing.assert_array_equal(labels[b].numpy(), ranks)
+        for k, (ys, xs) in enumerate(ndimage.find_objects(ranks + 1)):
+            row = stats[b, k].tolist()
+            assert row[0] == int((ranks == k).sum())
+            assert row[3:] == [ys.start, ys.stop, xs.start, xs.stop]
 
 
 @pytest.mark.parametrize('cap', [1, 2, 3])
 def test_page_ccl_unconverged_equals_jax(cap):
-    """A spiral needs several sweeps even with the row scans: under a
-    small cap both report no convergence, with the same labels."""
-    occ = _page_masks()[2:, :, :, None]
-    lab, _, converged = tbt.grid_ccl_labels(_t(occ), max_iters=cap,
-                                            column_scan=True)
-    lab_j, _, conv_j = jax.jit(functools.partial(
-        jdc.grid_ccl_labels, max_iters=cap, column_scan=True))(
-        jnp.asarray(occ))
-    assert converged == bool(conv_j)
-    np.testing.assert_array_equal(lab.numpy(), np.asarray(lab_j))
-    if cap == 1:
-        assert not converged
+    """A table smaller than the page's components: every component is
+    still labelled and counted, and the rows the table holds are the
+    first components'."""
+    masks = _page_masks()
+    labels, stats, n_comp = tdc.page_labels(_t(masks), cap)
+    full_labels, full_stats, full_n = tdc.page_labels(_t(masks), 48)
+    assert torch.equal(labels, full_labels) and torch.equal(n_comp, full_n)
+    assert int(n_comp.max()) > cap
+    assert torch.equal(stats, full_stats[:, :cap])
 
 
 # ---------------------------------------------------------------------------
@@ -193,65 +177,45 @@ def small_pipeline():
 
 
 def test_device_page_plans_equal_jax_and_host(small_pipeline):
-    """Every field of each page's plans: against JAX's device_page_plans
-    and against the host planner in the largest menu frame."""
+    """Every field of each page's plans in the largest menu frame, against
+    the host planner's: rotated bars on both sides of 45 degrees and
+    level blocks."""
     hb, wb = small_pipeline.line_shape_menu[-1]
-    fn = jax.jit(lambda p: jdc.device_page_plans(p, hb, wb, k_max=16))
-    rotated = folded = 0
+    rotated = 0
     for i, mask in enumerate(_page_masks()):
-        syncs = Counter()
-        lab, roots, plan, n_comp, ok = tdc.device_page_plans(
-            _t(mask).float(), hb, wb, k_max=16, syncs=syncs)
-        lab_j, roots_j, plan_j, n_comp_j, ok_j = fn(jnp.asarray(mask,
-                                                                jnp.float32))
-        assert bool(ok) and bool(ok_j)
-        assert int(n_comp) == int(n_comp_j)
-        np.testing.assert_array_equal(lab.numpy(), np.asarray(lab_j))
-        np.testing.assert_array_equal(roots.numpy(), np.asarray(roots_j))
-        _assert_plans_equal(plan, plan_j, f'page {i}')
-        assert syncs['page_ccl_block'] >= 1
-
+        lab, plan, n_comp, ok = tdc.device_page_plans(_t(mask), hb, wb,
+                                                      k_max=16)
+        assert bool(ok)
+        ranks, _ = _scipy_ranks(mask)
+        np.testing.assert_array_equal(lab.numpy(), ranks)
         host = small_pipeline._page_paragraph_plans(0, mask)
-        assert int(n_comp) == len(host)
-        for k, hp in enumerate(host):
-            rotated += hp['rotated']
-            folded += abs(hp['sin']) > abs(hp['cos'])
-            for ci, f in enumerate(FIELDS):
-                if f == 'page':
-                    continue
-                if f in tdc.PARAGRAPH_FLT_FIELDS:
-                    assert abs(plan[k, ci] - hp[f]) < 1e-3, (i, k, f)
-                else:
-                    assert int(plan[k, ci]) == hp[f], (i, k, f)
-    assert rotated >= 3 and folded >= 1
+        for hp in host:
+            hp.update(hv=min(hp['hv'], hb), wv=min(hp['wv'], wb))
+            rotated += hp['angle'] != 0
+        _assert_plans_equal_host(plan, n_comp, host, f'page {i}')
+    assert rotated >= 3
 
 
 def test_device_chunk_plans_equal_jax(small_pipeline):
     """A chunk of three pages, one of them with 56 components (more than
-    CHUNK_PLAN_K): labels, plans, menu picks and counts as JAX's."""
+    CHUNK_PLAN_K): labels, counts, plans and menu picks as the host
+    planner's."""
     masks = _page_masks()
     dense = _blob_grid(7, 8, pitch=(38, 52))[0, :, :, 0] < 0.5
-    stack = np.stack([masks[1], dense, masks[0]]).astype(np.float32)
+    stack = np.stack([masks[1], dense, masks[0]])
     menu = tuple(small_pipeline.line_shape_menu)
     K = small_pipeline.CHUNK_PLAN_K
-    lab, plans, menu_idx, n_comp, converged = tdc.device_chunk_plans(
-        _t(stack), menu, k_max=K)
-    lab_j, plans_j, menu_idx_j, n_comp_j, conv_j = jax.jit(
-        functools.partial(jdc.device_chunk_plans, menu=menu, k_max=K))(
-        jnp.asarray(stack))
-    assert converged and bool(conv_j)
-    np.testing.assert_array_equal(lab.numpy(), np.asarray(lab_j))
-    np.testing.assert_array_equal(n_comp.numpy(), np.asarray(n_comp_j))
+    lab, plans, menu_idx, n_comp = tdc.device_chunk_plans(_t(stack), menu,
+                                                          k_max=K)
     assert int(n_comp[1]) == 56 > K
-    # menu picks of live slots (JAX's dead slots pick from the background,
-    # whose label their root sentinel equals; no reader looks past n_comp)
-    live = np.arange(K)[None, :] < n_comp.numpy()[:, None]
-    np.testing.assert_array_equal(menu_idx.numpy()[live],
-                                  np.asarray(menu_idx_j)[live])
-    _assert_plans_equal(plans[..., :-1], np.asarray(plans_j)[..., :-1])
-    np.testing.assert_array_equal(plans[..., -1].numpy(),
-                                  np.asarray(plans_j)[..., -1])
-    assert len(set(menu_idx.numpy()[live].tolist())) >= 2
+    for b in (0, 2):
+        ranks, _ = _scipy_ranks(stack[b])
+        np.testing.assert_array_equal(lab[b].numpy(), ranks)
+        host = small_pipeline._page_paragraph_plans(b, stack[b])
+        _assert_plans_equal_host(plans[b], n_comp[b], host, f'page {b}')
+        assert int(plans[b, 0, FIELDS.index('page')]) == b
+        assert [menu[int(i)] for i in menu_idx[b, :len(host)]] == [
+            hp['menu'] for hp in host]
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +255,8 @@ def fused_run(weights, pages):
 
 
 def test_default_pipeline_matches_jax_fused_text(fused_run):
-    _, expected = load_fixture('fused_texts')
+    """The host cascade's text, exactly."""
+    _, expected = load_fixture()
     got = fused_run[0]
     assert sum(len(lines) for page in got for lines in page) > 0
     assert got == expected
@@ -303,31 +268,34 @@ def test_default_pipeline_timers_and_counters(fused_run):
     these pages; its syncs only the counted kinds."""
     texts, summary, timeline, stats, syncs = fused_run
     assert set(summary) == {'pull_plan_matrix', 'host_paragraph_plans',
-                            'dispatch_paragraph_stage', 'pull_fused_glyphs'}
+                            'dispatch_paragraph_stage', 'pull_fused_glyphs',
+                            'band_components', 'band_components_labelled',
+                            'host_sync'}
     assert summary['pull_plan_matrix']['count'] == N_PAGES // 2
     tags = Counter(tag for tag, *_ in timeline)
     assert set(tags) == {'plan_matrix', 'fused_glyphs'}
     assert tags['fused_glyphs'] == N_PAGES // 2
     assert stats['paragraphs'] == sum(len(page) for page in texts) == 32
-    assert stats['suspect'] == 0 and 'chain_fallback' not in stats
-    assert set(syncs) == {'page_ccl_block', 'suspect_check',
-                          'grid_ccl_block'}
+    assert stats['host_planned'] == 0 and 'chain_fallback' not in stats
+    assert syncs == Counter(plan_matrix=N_PAGES // 2,
+                            fused_glyphs=N_PAGES // 2)
+    assert summary['host_sync']['count'] == sum(syncs.values())
+    lines = sum(len(lines) for page in texts for lines in page)
+    assert summary['band_components']['count'] >= 2
+    assert summary['band_components_labelled']['total_s'] >= 2 * lines
 
 
 def test_single_page_chain_matches_jax_chain_text(weights, pages):
-    """Each fixture page alone through the chain: JAX's chain text, and
-    the fallback exactly where JAX's chain took it."""
-    _, expected = load_fixture('chain_texts')
-    _, fallbacks = load_fixture('chain_fallbacks')
+    """Each fixture page alone through the chain: the host cascade's
+    text, with no fallback (no page holds more than 2 * DEVICE_BATCH
+    paragraphs) and two host syncs a page: the plan and the glyphs."""
+    _, expected = load_fixture()
     with _port(weights) as pipeline:
-        for page, want, fell_back in zip(pages, expected, fallbacks):
-            before = pipeline.escalation_stats.get('chain_fallback', 0)
-            syncs = sum(pipeline.host_syncs.values())
+        for page, want in zip(pages, expected):
             assert pipeline.ocr_pages([page]) == [want]
-            assert (pipeline.escalation_stats.get('chain_fallback', 0)
-                    > before) == fell_back
-            assert sum(pipeline.host_syncs.values()) > syncs
-        assert pipeline.host_syncs['chain_plan'] == N_PAGES
+        assert 'chain_fallback' not in pipeline.escalation_stats
+        assert pipeline.host_syncs == Counter(chain_plan=N_PAGES,
+                                              fused_glyphs=N_PAGES)
 
 
 def test_chain_component_overflow_falls_back(weights):

@@ -5,13 +5,13 @@ tests/test_evaluation.py on the port.
 
 Bars: the scores are equal exactly (the same text gives the same
 SequenceMatcher ratios); the committed checkpoint's text and per-page
-score on the eval fixture's first pages, through the serving default in
-'bf16' on the CPU, equal those JAX stored in fixtures/eval_pages.npz.
-On all 8 pages the text holds a stated budget (one line off by one
-glyph, the score within 2e-4): the port's float32 Monochrome map on the
-CPU differs from XLA's in its last ulp (the 144-term convolution sums in
-another order, and torch's exp is not XLA's), and that moves one glyph;
-given JAX's map, the port's text of those pages equals JAX's."""
+score on the eval corpus, through the serving default in 'bf16' on the
+CPU, equal the port's host cascade's in the same configuration (the
+serving default computes the host cascade's crops and line plans; the
+JAX package's serving default, whose text fixtures/eval_pages.npz
+stores, loses lines the host cascade reads, so it is no longer the
+oracle here).  On all 8 pages the text holds a stated budget (one line
+off by one glyph, the score within 2e-4)."""
 
 import json
 
@@ -20,7 +20,6 @@ import pytest
 
 from univer_ocr_tpu.models import evaluation as jeval
 from univer_ocr_tpu_torch.models import evaluation as teval
-from univer_ocr_tpu_torch.models.evaluation import EVAL_FIXTURE
 from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
 from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
 
@@ -136,15 +135,27 @@ def test_eval_corpus_refuses_another_corpus():
         teval.eval_corpus(9)
 
 
-def test_score_weights_of_the_checkpoint_equals_jax():
-    """The gate's own scoring (score_weights: the serving default,
-    collapse 4, 'bf16') of the committed checkpoint on the eval corpus's
-    first two pages: the text and the per-page scores JAX stored."""
+@pytest.fixture(scope='module')
+def host_texts():
+    """The port's host cascade's text of the 8 eval pages in the gate's
+    configuration (collapse 4, 'bf16', chunk 8) on the CPU, and its
+    score_results dict."""
     with open(DEFAULT_CHECKPOINT) as fp:
         weights = json.load(fp)
-    with np.load(EVAL_FIXTURE) as f:
-        texts = json.loads(str(f['texts']))
-        score = json.loads(str(f['score']))
+    pages, truths = teval.eval_corpus(8)
+    with OCRPipeline((1, 496, 736, 1), weights=weights, collapse_runs=4,
+                     chunk=8, precision='bf16', device='cpu') as host:
+        texts = host.ocr_pages(pages)
+    return texts, jeval.score_results(truths, texts)
+
+
+def test_score_weights_of_the_checkpoint_equals_jax(host_texts):
+    """The gate's own scoring (score_weights: the serving default,
+    collapse 4, 'bf16') of the committed checkpoint on the eval corpus's
+    first two pages: the host cascade's text and per-page scores."""
+    with open(DEFAULT_CHECKPOINT) as fp:
+        weights = json.load(fp)
+    texts, score = host_texts
     pages, truths = teval.eval_corpus(2)
     seen = []
 
@@ -172,22 +183,19 @@ def _edit_distance(a, b):
 
 
 #: the budget of the whole corpus in 'bf16' on the CPU: lines that may
-#: differ from JAX's stored text, glyphs per such line, and the concat
-#: score's distance from JAX's (measured: 1 line, page 7 paragraph 2 line
-#: 0, one glyph; the score 1.31e-4 off)
+#: differ from the host cascade's text, glyphs per such line, and the
+#: concat score's distance from its score (measured: equal)
 CORPUS_LINES, CORPUS_GLYPHS, CORPUS_SCORE_ABS = 1, 1, 2e-4
 
 
-def test_score_weights_of_the_checkpoint_on_the_whole_corpus():
+def test_score_weights_of_the_checkpoint_on_the_whole_corpus(host_texts):
     """score_weights of the committed checkpoint on all 8 eval pages: the
-    same paragraphs and lines as JAX's stored text, at most CORPUS_LINES
-    lines differing, each by at most CORPUS_GLYPHS glyphs (edit
-    distance), and the score within CORPUS_SCORE_ABS of JAX's."""
+    same paragraphs and lines as the host cascade's text, at most
+    CORPUS_LINES lines differing, each by at most CORPUS_GLYPHS glyphs
+    (edit distance), and the score within CORPUS_SCORE_ABS of its."""
     with open(DEFAULT_CHECKPOINT) as fp:
         weights = json.load(fp)
-    with np.load(EVAL_FIXTURE) as f:
-        texts = json.loads(str(f['texts']))
-        score = json.loads(str(f['score']))
+    texts, score = host_texts
     pages, truths = teval.eval_corpus(8)
     seen = []
 

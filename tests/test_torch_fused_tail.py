@@ -1,26 +1,20 @@
-"""The port's fused tail (univer_ocr_tpu_torch.models.fused_tail) against
-the JAX package's (univer_ocr_tpu.models.fused_tail), function by
-function, and the fused paragraph dispatch of the port's OCRPipeline.
+"""The port's fused tail (univer_ocr_tpu_torch.models.fused_tail): its
+run-length decode against the JAX package's and the host's, its line
+planner against interpreter.pair_lines, the tail on a launch of crops,
+and the fused paragraph dispatch of the port's OCRPipeline.
 
 Bars:
   * the flat run-length decode: glyph ids, counts and overflow flags
     exactly equal to JAX's scan and to the port's pred_ids_to_text;
-  * the line planner and the cross-axis test: exactly equal (the same
-    float32 operations in the same order; the compactions are selections
-    in both packages);
-  * fused_paragraph_tail on the same crops: the small payload byte for
-    byte; the tables payload field for field, exactly, but for the
-    centres of blobs whose coordinate sums pass 2^24 (JAX sums them in
-    float32 one-hot products, which then round; the port sums integers,
-    exactly): there within 1e-6 relative.  Such blobs lie on the axis
-    not chosen (a level paragraph's whole band seen as one column run),
-    whose centres no planner reads.  The sheared crops within 1.2e-7
-    (the two-pass bar of tests/test_torch_band_tables.py; the shear is a
-    selection, so they are in fact equal);
-  * pipeline text on the fixture pages, against the JAX text stored in
-    the fixture (tests/test_torch_fixture.py): exactly equal in
-    'highest'; in 'bf16' within the flip budget of
-    tests/test_torch_device_pipeline.py."""
+  * the line planner: exactly pair_lines' lines (the same float64
+    centres, distances and stable orders) with extract_line's upright
+    extents and zoomed widths (device_cascade.line_plan_fields);
+  * fused_paragraph_tail on a launch of paragraph crops: each
+    paragraph's lines, the host cascade's text of that paragraph;
+  * pipeline text on the fixture pages, against the host cascade's text
+    stored in the fixture (tests/test_torch_fixture.py): exactly equal in
+    'highest'; in 'bf16', against the port's host cascade in 'bf16',
+    within the flip budget of tests/test_torch_device_pipeline.py."""
 
 import functools
 import json
@@ -32,13 +26,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from univer_ocr_tpu.models import device_cascade as jdc
 from univer_ocr_tpu.models import fused_tail as jft
-from univer_ocr_tpu_torch.interpreter import pred_ids_to_text
-from univer_ocr_tpu_torch.models import band_tables as tbt
+from univer_ocr_tpu_torch.interpreter import pair_lines, pred_ids_to_text
 from univer_ocr_tpu_torch.models import fused_tail as tft
+from univer_ocr_tpu_torch.models.band_tables import (band_tables,
+                                                     table_components)
 from univer_ocr_tpu_torch.models.device_cascade import (
-    extract_paragraph_crops_resident, unpack_paragraph_plan)
+    PARAGRAPH_FIELDS, line_plan_fields, paragraph_stage)
 from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
 from univer_ocr_tpu_torch.primitives import CHARS, SIMILAR_CHARS_PAIRS_LIST
 from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT, params_from_numpy
@@ -151,66 +145,75 @@ def test_look_alike_table_is_checked():
 
 
 # ---------------------------------------------------------------------------
-# The line planner and the cross-axis test
+# The line planner
 # ---------------------------------------------------------------------------
 
 
-def _random_tables(rs, B, M=48):
-    """Random blob tables: integer bboxes, centres inside them, counts up
-    to past the capacity, either axis."""
-    tbl = np.zeros((B, 2, M, 7, 2), np.float32)
-    y0 = rs.randint(0, 400, (B, 2, M, 2))
-    x0 = rs.randint(0, 600, (B, 2, M, 2))
-    y1 = y0 + rs.randint(1, 40, y0.shape)
-    x1 = x0 + rs.randint(1, 300, x0.shape)
-    tbl[:, :, :, 0] = rs.randint(1, 500, y0.shape)
-    tbl[:, :, :, 1], tbl[:, :, :, 2] = y0, y1
-    tbl[:, :, :, 3], tbl[:, :, :, 4] = x0, x1
-    tbl[:, :, :, 5] = y0 + rs.rand(*y0.shape) * (y1 - y0)
-    tbl[:, :, :, 6] = x0 + rs.rand(*x0.shape) * (x1 - x0)
-    nb = rs.randint(0, 12, (B, 2, 2)).astype(np.int32)
-    nb[0] = [[M + 3, M], [M, M + 1]]                    # over capacity
-    nb[1, :, 1] = 0                                     # an empty channel
-    return tbl, nb, rs.randint(0, 2, B).astype(np.int32)
+def _random_stats(rs, B, M=48):
+    """Random band tables: integer boxes with sums of pixels inside them,
+    counts up to past the capacity, an empty channel, and a paragraph of
+    one top and one bottom of equal centres' distances."""
+    stats = np.zeros((B, 2, M, 7), np.int32)
+    y0 = rs.randint(0, 400, (B, 2, M))
+    x0 = rs.randint(0, 600, (B, 2, M))
+    h = rs.randint(1, 40, y0.shape)
+    w = rs.randint(1, 300, x0.shape)
+    cnt = rs.randint(1, 200, y0.shape)
+    stats[..., 0] = cnt
+    stats[..., 1] = cnt * y0 + rs.randint(0, 1 + cnt * (h - 1))
+    stats[..., 2] = cnt * x0 + rs.randint(0, 1 + cnt * (w - 1))
+    stats[..., 3], stats[..., 4] = y0, y0 + h
+    stats[..., 5], stats[..., 6] = x0, x0 + w
+    n = rs.randint(0, 12, (B, 2)).astype(np.int32)
+    n[0] = [M + 3, M]                                   # over capacity
+    n[1, 1] = 0                                         # an empty channel
+    return stats, n
 
 
-def _band_tables(rotated):
-    """JAX's tables and axes of tests/test_fused_tail.py's synthetic
-    bands: paired stripes, level or transposed."""
-    tbls, nbs, axes = [], [], []
-    for seed in range(3):
-        bands = _synthetic_bands(np.random.RandomState(seed),
-                                 rotated=rotated)
-        tbl, nb, _ = jax.jit(jdc.band_blob_tables)(jnp.asarray(bands))
-        tbls.append(np.asarray(tbl)[0])
-        nbs.append(np.asarray(nb)[0])
-        axes.append(np.asarray(jdc.choose_stacking_axis(tbl, nb))[0])
-    return np.stack(tbls), np.stack(nbs), np.asarray(axes, np.int32)
+def _synthetic_stats(rotated):
+    """band_tables of tests/test_fused_tail.py's synthetic bands: paired
+    stripes, level or transposed."""
+    bands = np.concatenate([_synthetic_bands(np.random.RandomState(seed),
+                                             rotated=rotated)
+                            for seed in range(3)])
+    B, H, W, _ = bands.shape
+    stats, n = band_tables(_t(bands), torch.full((B,), H),
+                           torch.full((B,), W))
+    return stats.numpy(), n.numpy()
 
 
-@pytest.mark.parametrize('case', ['level', 'rotated', 'random'])
+@pytest.mark.parametrize('case', ['level', 'rotated', 'random', 'random-4',
+                                  'random-5'])
 def test_line_planner_and_cross_axis_equal_jax(case):
-    if case == 'random':
-        tbl, nb, axis = _random_tables(np.random.RandomState(3), 12)
+    """Every paragraph's plans are pair_lines' lines on the same
+    components, in its order, with extract_line's geometry
+    (line_plan_fields); every line of a paragraph is planned, however
+    many (the random tables hold paragraphs of more than 20 lines, more
+    than a generated paragraph holds), and the rows past them are zero."""
+    if case.startswith('random'):
+        seed = int(case.split('-')[1]) if '-' in case else 3
+        stats, n = _random_stats(np.random.RandomState(seed), 12)
     else:
-        tbl, nb, axis = _band_tables(case == 'rotated')
-    plans, n_lines, over = tft._plan_lines_single(_t(tbl), _t(nb), _t(axis))
-    exp = jax.jit(jax.vmap(jft._plan_lines_single))(
-        jnp.asarray(tbl), jnp.asarray(nb), jnp.asarray(axis))
-    _eq(plans, exp[0])
-    _eq(n_lines, exp[1])
-    _eq(over, exp[2])
+        stats, n = _synthetic_stats(case == 'rotated')
+    plans, n_lines = tft._plan_lines_single(_t(stats), _t(n))
+    M = stats.shape[2]
+    for b in range(stats.shape[0]):
+        (tb, tc), (bb, bc) = (table_components(stats[b, c],
+                                               min(int(n[b, c]), M))
+                              for c in (0, 1))
+        boxes, _, rotation = pair_lines(tb, tc, bb, bc)
+        want = [line_plan_fields(rotation, y.start, y.stop, x.start, x.stop)
+                for y, x in boxes]
+        assert int(n_lines[b]) == len(want)
+        for k, lp in enumerate(want):
+            assert plans[b, k].tolist() == [lp[f] for f in tft.PLAN_FIELDS]
+        assert (plans[b, len(want):] == 0).all()
     assert int(n_lines.sum()) > 0
-    if case == 'random':
-        assert bool(over.any())
-    else:
-        assert not bool(over.any())
+    assert (int(n_lines.max()) > 20) == case.startswith('random')
     if case == 'rotated':
-        # the column axis: every line plan rotated by 90 or 270 degrees
-        assert (plans[:, :, 3] == 0).all() and (plans[:, :, 4] != 0).any()
-    cross = tft._cross_axis_single(_t(tbl), _t(nb), _t(axis))
-    _eq(cross, jax.jit(jax.vmap(jft._cross_axis_single))(
-        jnp.asarray(tbl), jnp.asarray(nb), jnp.asarray(axis)))
+        # transposed stripes: every line turned by 90 or 270 degrees
+        live = plans[:, :, 0] > 0
+        assert (plans[:, :, 3][live] == 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -220,62 +223,46 @@ def test_line_planner_and_cross_axis_equal_jax(case):
 
 def test_fused_paragraph_tail_equals_jax(weights, pages):
     """One launch of paragraph crops of the first two fixture pages (the
-    two-pass crops of the resident stage in their commonest menu shape): the
-    port's tail and JAX's, with the plain Char head in both."""
+    paragraphs of their commonest menu shape): each paragraph's decoded
+    lines are the host cascade's lines of that paragraph."""
     params = params_from_numpy(weights, 'cpu')
-    jax_params = {name: {k: jnp.asarray(np.asarray(v, np.float32))
-                         for k, v in entry.items()}
-                  for name, entry in weights.items()}
+    _, texts = load_fixture()
     with _port(weights) as pipeline:
         mono, para = pipeline.front_resident(
             pipeline._upload_pages(pages[:2]))
+        labels = torch.stack([torch.from_numpy(
+            ndimage_ranks(para[page, :, :, 0].numpy())) for page in range(2)])
         plans = [p for page in range(2)
                  for p in pipeline._page_paragraph_plans(
                      page, para[page, :, :, 0].numpy())]
+        want = [texts[p['page']][p['label']] for p in plans]
         menus = [p['menu'] for p in plans]
         menu = max(set(menus), key=menus.count)
-        sel = [p for p in plans if p['menu'] == menu]
+        sel = [i for i, p in enumerate(plans) if p['menu'] == menu]
         assert len(sel) >= 4
-        mat = np.zeros((len(sel), 17), np.float32)
-        fields = ('page', 'y0', 'x0', 'h', 'w', 'ry0', 'rx0', 'out_h',
-                  'out_w', 'py', 'px', 'hv', 'wv', 'cos', 'sin', 'off_y',
-                  'off_x')
-        for i, plan in enumerate(sel):
-            mat[i] = [plan[f] for f in fields]
-        iv, fv = unpack_paragraph_plan(_t(mat))
-        crops = extract_paragraph_crops_resident(
-            mono, para.float(), iv['page'], iv['y0'], iv['x0'], iv['h'],
-            iv['w'], fv['cos'], fv['sin'], fv['off_y'], fv['off_x'],
-            iv['ry0'], iv['rx0'], iv['out_h'], iv['out_w'], iv['py'],
-            iv['px'], *menu, sampler='twopass')
-    hv, wv = iv['hv'], iv['wv']
-    got = tft.fused_paragraph_tail(params, crops, hv, wv,
-                                   precision='highest', min_run=4)
-    exp = jax.jit(functools.partial(
-        jft.fused_paragraph_tail, precision='highest', margin=True,
-        min_run=4, char_head='xla'))(
-        jax_params, jax_params, jnp.asarray(crops.numpy()),
-        jnp.asarray(hv.numpy()), jnp.asarray(wv.numpy()))
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(exp[0]), rtol=0,
-                               atol=1.2e-7)
-    _eq(got[1], exp[1], 'small payload')
-    tables = tbt.unpack_tables_payload(got[2].numpy())
-    tables_j = jdc.unpack_tables_payload(np.asarray(exp[2]))
-    for name, g, e in zip(('n_blobs', 'shears', 'axis', 'suspect',
-                           'profile'), tables[1:], tables_j[1:]):
-        _eq(g, e, name)
-    # the blob tables: exact but for the centres of blobs whose coordinate
-    # sums pass 2^24, which JAX's float32 one-hot sums round (the port
-    # sums integers); none of them is on the chosen axis
-    tbl, tbl_j = tables[0], tables_j[0]
-    _eq(tbl[:, :, :, :5], tbl_j[:, :, :, :5], 'table counts and bboxes')
-    np.testing.assert_allclose(tbl, tbl_j, rtol=1e-6, atol=0)
-    chosen = np.arange(len(sel)), tables[3]
-    _eq(tbl[chosen], tbl_j[chosen], 'chosen-axis tables')
-    texts, suspects = tft.unpack_fused_payload(got[1].numpy(), len(sel))
-    assert sum(len(lines) for lines in texts) >= len(sel)
-    assert not suspects.any()
-    assert got[1].shape[0] == tft.fused_payload_nbytes(len(sel))
+        mat = _t(np.asarray([[plans[i][f] for f in PARAGRAPH_FIELDS]
+                             for i in sel], np.int32))
+        crops, bands = paragraph_stage(
+            params, torch.round(mono[..., 0] * 255.0) / 255.0, labels, mat,
+            *menu, precision='highest')
+    hv, wv = (mat[:, PARAGRAPH_FIELDS.index(k)] for k in ('hv', 'wv'))
+    small, lines = tft.fused_paragraph_tail(params, crops, bands, hv, wv,
+                                            precision='highest', min_run=4)
+    got, flags, comps = tft.unpack_fused_payload(small.numpy(), len(sel))
+    # the line plans left on the device: a nonzero row per line
+    assert (lines[:, :, 0] > 0).sum(dim=1).tolist() == [
+        len(want[i]) for i in sel]
+    assert not flags.any()
+    assert [[line.strip() for line in lines] for lines in got] == [
+        want[i] for i in sel]
+    assert (comps >= 2 * np.asarray([len(want[i]) for i in sel])).all()
+    assert small.shape[0] == tft.fused_payload_nbytes(len(sel))
+
+
+def ndimage_ranks(mask):
+    from scipy import ndimage
+    lab, _ = ndimage.label(mask > 0)
+    return lab.astype(np.int32) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -284,11 +271,10 @@ def test_fused_paragraph_tail_equals_jax(weights, pages):
 
 
 def test_fused_tail_without_planner_matches_tables_text(weights, pages):
-    """The fused tail on the host-planned dispatch gives the tables mode's
-    text, as JAX's test_fused_pipeline_matches_classic holds: every
-    paragraph decoded on the device (no suspect on these pages), one pull
-    per wave of launches."""
-    _, expected = load_fixture('tables_texts')
+    """The fused tail on the host-planned dispatch gives the host
+    cascade's text: every paragraph decoded on the device (none flagged on
+    these pages), one pull per wave of launches."""
+    _, expected = load_fixture()
     with _port(weights) as pipeline:
         assert pipeline.fused_tail and pipeline._device_planner
         pipeline._device_planner = False
@@ -297,7 +283,7 @@ def test_fused_tail_without_planner_matches_tables_text(weights, pages):
         tags = {tag for tag, *_ in pipeline.timeline}
     assert got == expected[:2]
     assert stats['paragraphs'] == sum(len(page) for page in got)
-    assert stats['suspect'] == stats['capacity'] == 0
+    assert stats['host_planned'] == 0
     assert 'chain_fallback' not in stats
     assert tags == set()                  # timers off: no timeline
 
@@ -305,28 +291,54 @@ def test_fused_tail_without_planner_matches_tables_text(weights, pages):
 def test_fused_overflow_escalates_to_tables_text(weights, pages,
                                                  monkeypatch):
     """With a pool of 2 lines and 8 glyphs a line, every launch overflows:
-    the flagged paragraphs re-plan on the host from their tables, and the
-    text is the tables mode's (host-planned dispatch) or the chain's (one
-    page)."""
-    _, tables_texts = load_fixture('tables_texts')
-    _, chain_texts = load_fixture('chain_texts')
+    the flagged paragraphs' device line plans are pulled and relaunched
+    through the line stage, no band mask comes home, and the text is the
+    host cascade's, on the host-planned dispatch and through the chain
+    (one page)."""
+    _, expected = load_fixture()
     monkeypatch.setattr(tft, 'LINE_POOL', 2)
     monkeypatch.setattr(tft, 'MAX_GLYPHS', 8)
     with _port(weights) as pipeline:
         pipeline._device_planner = False
-        assert pipeline.ocr_pages(pages[:1]) == tables_texts[:1]
+        assert pipeline.ocr_pages(pages[:1]) == expected[:1]
         stats = dict(pipeline.escalation_stats)
         pipeline._device_planner = True
-        assert pipeline.ocr_pages(pages[:1]) == chain_texts[:1]
+        assert pipeline.ocr_pages(pages[:1]) == expected[:1]
+        assert pipeline.host_syncs['line_plans'] >= 2
+        assert 'bands' not in pipeline.host_syncs
     assert stats['pool_of'] + stats['glyph_of'] > 0, stats
-    assert stats['suspect'] > 0 and stats['capacity'] == stats['suspect']
+    assert 0 < stats['relaunched'] <= stats['paragraphs']
+    assert stats['host_planned'] == stats['table_of'] == 0
+
+
+@pytest.mark.parametrize('cap', [1, 3])
+def test_fused_table_overflow_plans_from_bands(weights, pages, monkeypatch,
+                                               cap):
+    """With band tables of `cap` rows and a pool of 2 lines, a paragraph
+    whose table overflows is planned on the host from its pulled band
+    masks and the others that overflow the pool are relaunched from their
+    device line plans, in one launch; the text is the host cascade's."""
+    from univer_ocr_tpu_torch.models import band_tables
+    _, expected = load_fixture()
+    monkeypatch.setattr(band_tables, 'MAX_BAND_COMPONENTS', cap)
+    monkeypatch.setattr(tft, 'LINE_POOL', 2)
+    with _port(weights) as pipeline:
+        pipeline._device_planner = False
+        assert pipeline.ocr_pages(pages[:1]) == expected[:1]
+        stats = pipeline.escalation_stats
+        syncs = pipeline.host_syncs
+    assert 0 < stats['host_planned'] == stats['table_of']
+    assert syncs['bands'] > 0
+    assert stats['host_planned'] + stats['relaunched'] <= stats['paragraphs']
+    if cap == 3:
+        assert stats['relaunched'] > 0 and syncs['line_plans'] > 0
 
 
 def test_fused_bf16_matches_jax_plain_bf16(weights, pages):
     """'bf16' through the serving default (device planner, fused tail)
-    against JAX's, run with the plain layers in bfloat16 (use_pallas=False)
-    and stored in the fixture (`fused_bf16_texts`), on two pages."""
-    _, expected = load_fixture('fused_bf16_texts')
+    against the port's host cascade in 'bf16', on two pages."""
+    with _port(weights, precision='bf16', device_cascade=False) as host:
+        expected = host.ocr_pages(pages[:2])
     with _port(weights, precision='bf16') as pipeline:
         assert pipeline.mono_weights is None and pipeline.char_head == 'xla'
         got = pipeline.ocr_pages(pages[:2])

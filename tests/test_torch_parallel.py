@@ -22,7 +22,6 @@ import torch
 from jax.sharding import Mesh as JaxMesh
 
 from univer_ocr_tpu.models import dp_train as jdp
-from univer_ocr_tpu.models import fused_tail as jft
 from univer_ocr_tpu.models import model as jmodel
 from univer_ocr_tpu.nn.optimizers import Adam as JAdam
 from univer_ocr_tpu.parallel import make_dp_train_step as jax_dp_step
@@ -316,7 +315,7 @@ def test_batched_steps_under_a_mesh(name):
 def _payload_segment(rs, b_local, n_real):
     """A random fused-tail payload of one shard: random glyphs on random
     pool slots of the shard's first n_real paragraphs, the rest of the
-    pool unused (255), random suspect bytes."""
+    pool unused (255), random flag bytes and component counts."""
     P, G = tft.LINE_POOL, tft.MAX_GLYPHS
     glyphs = rs.randint(0, len(CHARS), (P, G)).astype(np.uint8)
     n_glyphs = rs.randint(0, G + 1, P).astype(np.uint8)
@@ -325,18 +324,38 @@ def _payload_segment(rs, b_local, n_real):
     if n_real:
         para[:used] = np.sort(rs.randint(0, n_real, used))
     n_lines = rs.randint(0, 20, b_local).astype(np.uint8)
-    suspect = (rs.randint(0, 128, b_local) * (rs.rand(b_local) < 0.3)
-               ).astype(np.uint8)
+    flags = (rs.randint(0, 32, b_local) * (rs.rand(b_local) < 0.3)
+             ).astype(np.uint8)
+    comps = rs.randint(0, 1 << 16, b_local)
     return np.concatenate([glyphs.reshape(-1), n_glyphs, para, n_lines,
-                           suspect])
+                           flags, (comps & 255).astype(np.uint8),
+                           (comps >> 8).astype(np.uint8)])
+
+
+def _segment_reading(segment, k):
+    """What a shard's payload says of its first k paragraphs, read
+    directly: each pool slot's glyphs under its paragraph, in pool order;
+    the flag bytes; the two-byte component counts."""
+    P, G = tft.LINE_POOL, tft.MAX_GLYPHS
+    b = (len(segment) - P * G - 2 * P) // 4
+    glyphs = segment[:P * G].reshape(P, G)
+    n_glyphs, para = segment[P * G:P * G + P], segment[P * G + P:P * G + 2 * P]
+    texts = [[] for _ in range(k)]
+    for p in range(P):
+        if para[p] < k:
+            texts[para[p]].append(''.join(
+                CHARS[g] for g in glyphs[p, :n_glyphs[p]]))
+    tail = segment[P * G + 2 * P:].reshape(4, b).astype(np.int64)
+    return texts, tail[1, :k], tail[2, :k] + 256 * tail[3, :k]
 
 
 @pytest.mark.parametrize('n_shards', [2, 4])
 def test_unpack_fused_payload_merges_shards_as_jax(n_shards):
-    """Random payloads of n_shards segments: texts and suspects equal
-    JAX's for every paragraph count, among them a partial last shard and
-    empty trailing shards; each segment's paragraphs keep their own
-    suspect bytes (an overflow in one shard escalates only its own)."""
+    """Random payloads of n_shards segments, for every paragraph count,
+    among them a partial last shard and empty trailing shards: each
+    segment's paragraphs get the texts, flags and component counts that
+    segment holds for them (an overflow in one shard sends only its own
+    paragraphs to the host)."""
     rs = np.random.RandomState(n_shards)
     batch = 16
     b_local = batch // n_shards
@@ -347,17 +366,17 @@ def test_unpack_fused_payload_merges_shards_as_jax(n_shards):
                                      min(max(n - s * b_local, 0), b_local))
                     for s in range(n_shards)]
         buf = np.concatenate(segments)
-        texts, suspects = tft.unpack_fused_payload(buf, n, n_shards=n_shards)
-        j_texts, j_suspects = jft.unpack_fused_payload(buf, n,
+        texts, flags, comps = tft.unpack_fused_payload(buf, n,
                                                        n_shards=n_shards)
-        assert texts == j_texts and len(texts) == n
-        np.testing.assert_array_equal(suspects, j_suspects)
+        assert len(texts) == len(flags) == len(comps) == n
         for s in range(n_shards):
             first = s * b_local
             k = min(max(n - first, 0), b_local)
-            own_texts, own = tft.unpack_fused_payload(segments[s], k)
+            own_texts, own_flags, own_comps = _segment_reading(segments[s],
+                                                               k)
             assert texts[first:first + k] == own_texts
-            np.testing.assert_array_equal(suspects[first:first + k], own)
+            np.testing.assert_array_equal(flags[first:first + k], own_flags)
+            np.testing.assert_array_equal(comps[first:first + k], own_comps)
 
 
 @pytest.fixture(scope='module')

@@ -3,7 +3,7 @@
 
     python -m univer_ocr_tpu_torch.eval_accuracy [n] [--gt-crops] [--f32]
         [--host-cascade] [--pages FILE.npz] [--no-collapse] [--min-run=N]
-        [--chunk=N] [--exact-bands] [--no-escalation] [--weights JSON]
+        [--chunk=N] [--exact-bands] [--weights JSON]
         [--cpu]
 
 The pages are the eval corpus's (`evaluation.render_eval_pages(n, 123)`,
@@ -79,7 +79,7 @@ def _pipeline(weights, device, **kwargs):
 
 
 def main(n_pages=8, collapse=True, seed=123, chunk=8, precision='bf16',
-         device_cascade=True, escalation=True, exact_bands=False,
+         device_cascade=True, exact_bands=False,
          pages_path=None, weights=None, device=None, log=print):
     """The pages through the OCR pipeline, scored against interpret() of
     their layers; returns `evaluation.score_results`' dict."""
@@ -88,8 +88,7 @@ def main(n_pages=8, collapse=True, seed=123, chunk=8, precision='bf16',
     pages = [_unit(page['image']) for page in layers]
     options = (dict(device_cascade=True, exact_bands=True)
                if exact_bands else
-               dict(chunk=chunk, device_cascade=device_cascade,
-                    escalation=escalation))
+               dict(chunk=chunk, device_cascade=device_cascade))
     with _pipeline(weights, device, collapse_runs=collapse,
                    precision=precision, **options) as pipe:
         results = pipe.ocr_pages(pages)
@@ -184,7 +183,6 @@ def cli(argv):
                              device=device)
     return main(n, collapse, chunk=chunk, precision=precision,
                 device_cascade='--host-cascade' not in argv,
-                escalation='--no-escalation' not in argv,
                 exact_bands='--exact-bands' in argv, pages_path=pages_path,
                 weights=weights, device=device)
 

@@ -1,40 +1,34 @@
-"""Device-resident cascade, parity mode (univer_ocr_tpu/models/
-device_cascade.py with `exact_bands=True` and the 'gather' sampler).
+"""Device-resident cascade (univer_ocr_tpu/models/device_cascade.py): the
+host cascade's paragraph and line crops, computed on the device.
 
-The monochrome map stays on the device for the whole cascade; the host
-sees only masks and decides geometry, and the pixels it used to crop and
-resample on the CPU are gathered on the device instead:
+The monochrome map stays on the device for the whole cascade, in the
+uint8 steps the host cascade pulls it in; the host sees only what it
+plans from.  Two gathers replace the host's CPU resampling, and each
+computes the host's own geometry:
 
-  * `rotated_paragraph_crops`: crop + blob mask + `ndimage.rotate(order=1)`
-    + rotated-bbox slice as ONE bilinear gather from the page stack, with
-    scipy's rotate convention computed per sample on the host
-    (`rotate_affine`);
-  * `zoomed_line_crops`: line-bbox crop + `np.rot90` +
-    `ndimage.zoom(order=0)` + min-width pad as one nearest gather (the
-    JAX package's line stage takes its one-hot matrix-product form,
-    `zoomed_line_crops_matmul`, because gathers are slow on a TPU; the
-    values are the same).
+  * `paragraph_crops`: a paragraph's box of the map, masked to the
+    paragraph, rotated as `ndimage.rotate(..., axes=(1, 0), order=1,
+    reshape=True)` rotates it (its output shape and centre, its inverse
+    map in float64, its edge rule: zero wherever a coordinate leaves the
+    input) and cut to the box of the order-0 rotated mask: the host
+    cascade's `deskew_paragraph` and the reference's `crop_paragraph`;
+  * `zoomed_line_crops`: a line's box turned upright (np.rot90) and zoomed
+    to height 32 as `ndimage.zoom(order=0)` zooms it (its float64
+    coordinates, zero where one passes the input's last index), then
+    right-padded with zeros to width 8: the host's `extract_line`.
 
-The serving sampler, 'twopass' (`twopass_paragraph_crops*`), resamples
-the same crops in two 1D passes (an exact rot90 parity fold, an integer
-bbox extraction, then one shear-and-scale pass per axis).  The JAX
-package runs its extraction and its 2-tap blends as one-hot matrix
-products on the MXU; here they are gathers, with the same values: the
-extraction and the integer shifts are pure selection, and each output
-sample is the same two products and their sum.
+The JAX package resamples in float32 (one bilinear gather, or two 1D
+passes); its crops read 6-10 % of characters away from the host
+cascade's text, so the port's device cascade departs from it here and
+follows the host cascade.
 
-Both compose with the masked Line/Char forwards (fastpath.py) into the
-stage functions `paragraph_stage*` and the pipeline's line stage.  In the
-parity mode the paragraph stage returns the band masks, as one byte per
-pixel where the JAX package bit-packs them (the bits are the same); in
-the tables mode (band_tables.py) it returns the sheared crops and the
-tables payload.
-
-The device paragraph planners (`device_page_plans`, `device_chunk_plans`)
-label the paragraph mask on the device (the page CCL: band_tables.
-grid_ccl_labels with the row scans) and compute what the host planner
-(OCRPipeline._page_paragraph_plans) computes for each component, so the
-serving default pulls one small plan matrix instead of the mask.
+The paragraph planners (`device_page_plans`, `device_chunk_plans`) label
+the paragraph masks on the device (`page_labels`: the `band_ccl` kernel,
+4-connected as the host's labels) and compute what the host planner
+(OCRPipeline._page_paragraph_plans) computes for each component: the
+deskew angle of least height on the 1-degree grid, the rotated frame and
+the box of the order-0 rotated mask.  Each crop reads its component from
+the chunk's labels, so nothing is uploaded for it.
 
 The forwards' convolutions are full float32 in 'highest' only while TF32
 is off: run the stages inside `ops.precision.backend_flags(precision)`
@@ -45,34 +39,18 @@ import functools
 
 import numpy as np
 import torch
+from scipy import special
 
-from ..ops import precision as precision_policy
-from .band_tables import (_CCL_BIG, _shear_span, grid_ccl_labels,
-                          pack_tables_payload, tables_state)
-from .deskew_table import COS_DEG, SIN_DEG
-from .fastpath import _mask_hw, line_forward_masked
+from ..ops.kernels.band_ccl import band_ccl
+from .band_tables import band_threshold
+from .bucketing import CHAR_FIXED_WIDTH, CHAR_INPUT_HEIGHT
+from .fastpath import line_forward_masked
+
+F64 = torch.float64
 
 # ---------------------------------------------------------------------------
-# Host-side geometry (scipy conventions, computed per sample)
+# Host-side geometry
 # ---------------------------------------------------------------------------
-
-
-def rotate_affine(angle_deg, in_h, in_w):
-    """Output shape and output->input affine of
-    `scipy.ndimage.rotate(angle, axes=(2, 1), reshape=True)` on an
-    (in_h, in_w) plane: in = R @ out + offset."""
-    if angle_deg is None:
-        return (in_h, in_w), (1.0, 0.0), (0.0, 0.0)
-    rad = np.deg2rad(angle_deg)
-    cos_a, sin_a = float(np.cos(rad)), float(np.sin(rad))
-    rot = np.array([[cos_a, sin_a], [-sin_a, cos_a]])
-    corners = rot @ np.array([[0, 0, in_h, in_h], [0, in_w, 0, in_w]], float)
-    out_shape = (np.ptp(corners, axis=1) + 0.5).astype(int)
-    offset = ((np.array([in_h, in_w]) - 1) / 2.0
-              - rot @ ((out_shape - 1) / 2.0))
-    return ((int(out_shape[0]), int(out_shape[1])),
-            (cos_a, sin_a), (float(offset[0]), float(offset[1])))
-
 
 #: inverse affine of np.rot90(k, axes=(2, 1)) per k on an (h, w) plane:
 #: rotated[yr, xr] == original[ys, xs] with
@@ -99,11 +77,70 @@ def zoom_output_width(w, zoom):
     return int(round(w * zoom))
 
 
-def zoom_ratio(in_len, out_len):
-    """scipy's endpoint-aligned coordinate ratio (grid_mode=False)."""
-    if out_len <= 1:
-        return 0.0
-    return (in_len - 1) / (out_len - 1)
+# ---------------------------------------------------------------------------
+# scipy's rotation in float64
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _rotation_table(device):
+    """(cos, sin) of each whole degree in [0, 180] on `device`, float64:
+    the values `ndimage.rotate` builds its matrix from (special.cosdg and
+    sindg, exact at 0, 90 and 180 degrees)."""
+    deg = np.arange(181.0)
+    return (torch.as_tensor(special.cosdg(deg), dtype=F64, device=device),
+            torch.as_tensor(special.sindg(deg), dtype=F64, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _angle_table(device):
+    """(cos, sin) of each whole degree in [0, 180], as find_rotation_angle
+    computes them (np.cos of np.deg2rad), float64 on `device`."""
+    t = np.deg2rad(np.arange(181.0))
+    return (torch.as_tensor(np.cos(t), dtype=F64, device=device),
+            torch.as_tensor(np.sin(t), dtype=F64, device=device))
+
+
+def _fma(a, b, c):
+    """a * b + c with one rounding, from float64 operations (Dekker's exact
+    product and Knuth's exact sum): numpy computes the 2x2 matrix products
+    of `ndimage.rotate`'s centre this way (its BLAS kernel fuses them)."""
+    p = a * b
+    split = 134217729.0                     # 2**27 + 1
+    ta, tb = split * a, split * b
+    ah, bh = ta - (ta - a), tb - (tb - b)
+    al, bl = a - ah, b - bh
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    v = s - p
+    return s + (((p - (s - v)) + (c - v)) + err)
+
+
+def rotate_geometry(angle, h, w):
+    """`ndimage.rotate(reshape=True)`'s geometry for whole-degree `angle`s
+    (integer tensors, 0 the identity) of (h, w) planes: (cos, sin, out_h,
+    out_w, off_y, off_x), float64 where scipy's are, with the input
+    coordinate of output (y, x) = [[cos, sin], [-sin, cos]] @ (y, x) +
+    (off_y, off_x)."""
+    cos_t, sin_t = _rotation_table(angle.device)
+    c, s = cos_t[angle.long()], sin_t[angle.long()]
+    hf, wf = h.to(F64), w.to(F64)
+    zero = torch.zeros_like(hf)
+    # the box of the rotated corners (0, 0), (0, w), (h, 0), (h, w)
+    ys = torch.stack([zero, s * wf, c * hf, c * hf + s * wf])
+    xs = torch.stack([zero, c * wf, -s * hf, -s * hf + c * wf])
+    out_h = torch.floor(ys.amax(0) - ys.amin(0) + 0.5).long()
+    out_w = torch.floor(xs.amax(0) - xs.amin(0) + 0.5).long()
+    a, b = (out_h - 1).to(F64) / 2, (out_w - 1).to(F64) / 2
+    off_y = (hf - 1) / 2 - _fma(c, a, s * b)
+    off_x = (wf - 1) / 2 - _fma(-s, a, c * b)
+    return c, s, out_h, out_w, off_y, off_x
+
+
+def _source_coords(c, s, off_y, off_x, qy, qx):
+    """scipy's geometric transform: the offset, plus each output
+    coordinate times its matrix entry, in that order."""
+    return (off_y + qy * c) + qx * s, (off_x + qy * -s) + qx * c
 
 
 # ---------------------------------------------------------------------------
@@ -111,756 +148,354 @@ def zoom_ratio(in_len, out_len):
 # ---------------------------------------------------------------------------
 
 
-def _fma(a, b, c):
-    """a * b + c with one rounding.  The JAX package's compiled programs
-    evaluate a product whose only use is a sum this way (XLA's CPU
-    backend contracts the pair into a fused multiply-add), so the
-    resampler's coordinates take it at the same places: a floor of a
-    coordinate moves with the rounding of its last ulp."""
-    return torch.addcmul(c, a, torch.as_tensor(b, dtype=a.dtype,
-                                               device=a.device))
+def paragraph_crops(mono, labels, page, label, y0, x0, h, w, angle, ry0,
+                    rx0, out_h, out_w, py, px, out_hb, out_wb):
+    """Deskewed paragraph crops as one gather from the chunk's maps.
+
+    mono (N, H, W) float32 maps; labels (N, H, W) integer component
+    labels of the paragraph masks; the rest (B,) integer columns of the
+    plans (PARAGRAPH_FIELDS): the paragraph's page, its label, its box
+    (y0, x0, h, w), its deskew angle in degrees, the box of its rotated
+    mask (ry0, rx0, out_h, out_w) and the crop's place (py, px) in the
+    (out_hb, out_wb) bucket (make_divisible_by's centre pad).
+
+    Equal to the host cascade's crop: (map * mask)[box] through
+    `ndimage.rotate(order=1)` (float64 inside, float32 out), cut to the
+    order-0 rotated mask's box.  Returns (B, out_hb, out_wb, 1) float32,
+    zero outside the crop."""
+    dev = mono.device
+    B = page.shape[0]
+    N, H, W = mono.shape
+
+    def col(v):
+        return v.to(torch.int64).reshape(B, 1, 1)
+
+    c, s, _, _, oy, ox = (t.reshape(B, 1, 1) for t in
+                          rotate_geometry(angle, h, w))
+    i = torch.arange(out_hb, device=dev).reshape(1, -1, 1)
+    j = torch.arange(out_wb, device=dev).reshape(1, 1, -1)
+    pyc, pxc = col(py), col(px)
+    cy, cx = _source_coords(c, s, oy, ox, (i - pyc + col(ry0)).to(F64),
+                            (j - pxc + col(rx0)).to(F64))
+    hc, wc = col(h), col(w)
+    inside = ((cy >= 0) & (cy <= (hc - 1).to(F64)) & (cx >= 0)
+              & (cx <= (wc - 1).to(F64)) & (i >= pyc)
+              & (i < pyc + col(out_h)) & (j >= pxc) & (j < pxc + col(out_w)))
+    fy, fx = torch.floor(cy), torch.floor(cx)
+    ty, tx = cy - fy, cx - fx
+    yi, xi = fy.to(torch.int64), fx.to(torch.int64)
+    src, lab = mono.reshape(-1), labels.reshape(-1)
+    base = (col(page) * H + col(y0)) * W + col(x0)
+    lb = col(label)
+
+    def tap(dy, dx):
+        # clamped taps carry zero weight wherever the coordinate is inside
+        yy = torch.minimum(torch.clamp(yi + dy, min=0), hc - 1)
+        xx = torch.minimum(torch.clamp(xi + dx, min=0), wc - 1)
+        at = base + yy * W + xx
+        return torch.where(lab[at] == lb, src[at].to(F64), 0.0)
+
+    wy, wx = 1.0 - ty, 1.0 - tx
+    t = tap(0, 0) * wy * wx
+    t = t + tap(0, 1) * wy * tx
+    t = t + tap(1, 0) * ty * wx
+    t = t + tap(1, 1) * ty * tx
+    return torch.where(inside, t, 0.0).to(torch.float32)[..., None]
 
 
-@functools.lru_cache(maxsize=None)
-def _deskew_tables(device):
-    """(cos, sin) of the deskew grid's 181 degrees on `device`, the JAX
-    package's float32 values (deskew_table.py)."""
-    return (torch.tensor(COS_DEG, dtype=torch.float32, device=device),
-            torch.tensor(SIN_DEG, dtype=torch.float32, device=device))
-
-
-def _per_sample(v, n, dtype, device):
-    return torch.as_tensor(v, device=device).to(dtype).reshape(n, 1, 1)
-
-
-def _bilinear_crops(mono_stack, page_idx, src_y0, src_x0, src_h, src_w,
-                    cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h,
-                    out_w, pad_y, pad_x, out_hb, out_wb, blob=None,
-                    para_stack=None):
-    """The bilinear gather shared by both crop variants: the blob is read
-    from `blob` (bbox-local, (B, HB, WB) bytes) or, when that is None,
-    from `para_stack` at the page coordinates of the mono sample."""
-    dev = mono_stack.device
-    B, HB, WB = page_idx.shape[0], out_hb, out_wb
-
-    def col(v, dtype=torch.float32):
-        return _per_sample(v, B, dtype, dev)
-
-    rows = torch.arange(HB, dtype=torch.float32, device=dev).reshape(1, HB, 1)
-    cols = torch.arange(WB, dtype=torch.float32, device=dev).reshape(1, 1, WB)
-    grid_y = rows + col(out_y0) - col(pad_y)
-    grid_x = cols + col(out_x0) - col(pad_x)
-    cos_c, sin_c = col(cos_a), col(sin_a)
-    in_y = cos_c * grid_y + sin_c * grid_x + col(off_y)
-    in_x = -sin_c * grid_y + cos_c * grid_x + col(off_x)
-
-    y_floor = torch.floor(in_y)
-    x_floor = torch.floor(in_x)
-    wy = in_y - y_floor
-    wx = in_x - x_floor
-    y_base = y_floor.to(torch.int64)
-    x_base = x_floor.to(torch.int64)
-
-    pages = mono_stack[:, :, :, 0].reshape(-1)
-    page_h, page_w = mono_stack.shape[1], mono_stack.shape[2]
-    page = col(page_idx, torch.int64)
-    sy0, sx0 = col(src_y0, torch.int64), col(src_x0, torch.int64)
-    sh, sw = col(src_h, torch.int64), col(src_w, torch.int64)
-
-    # scipy mode='constant': a coordinate anywhere outside [0, size-1] is
-    # entirely cval (no partial edge interpolation)
-    in_domain = ((in_y >= 0) & (in_y <= col(src_h) - 1)
-                 & (in_x >= 0) & (in_x <= col(src_w) - 1))
-    if blob is not None:
-        blob = blob.to(torch.float32).reshape(-1)
-        b_idx = torch.arange(B, device=dev).reshape(B, 1, 1)
-    else:
-        paras = para_stack[:, :, :, 0].reshape(-1)
-
-    def corner(dy, dx):
-        # in-domain coords have all four corners within [0, size-1] after
-        # clamping (the +1 corner only exceeds it with zero weight)
-        yy = torch.clamp(torch.minimum(y_base + dy, sh - 1), min=0)
-        xx = torch.clamp(torch.minimum(x_base + dx, sw - 1), min=0)
-        yp = torch.clamp(sy0 + yy, 0, page_h - 1)
-        xp = torch.clamp(sx0 + xx, 0, page_w - 1)
-        at = (page * page_h + yp) * page_w + xp
-        if blob is None:
-            return pages[at] * paras[at]
-        yb = torch.clamp(yy, 0, HB - 1)
-        xb = torch.clamp(xx, 0, WB - 1)
-        return pages[at] * blob[(b_idx * HB + yb) * WB + xb]
-
-    top = corner(0, 0) * (1 - wx) + corner(0, 1) * wx
-    bottom = corner(1, 0) * (1 - wx) + corner(1, 1) * wx
-    value = top * (1 - wy) + bottom * wy
-
-    out_rows = rows.to(torch.int64)
-    out_cols = cols.to(torch.int64)
-    py, px = col(pad_y, torch.int64), col(pad_x, torch.int64)
-    in_slice = ((out_rows >= py) & (out_rows < py + col(out_h, torch.int64))
-                & (out_cols >= px)
-                & (out_cols < px + col(out_w, torch.int64)))
-    return torch.where(in_domain & in_slice, value,
-                       torch.zeros((), device=dev))[..., None]
-
-
-def rotated_paragraph_crops(mono_stack, blob, page_idx,
-                            src_y0, src_x0, src_h, src_w,
-                            cos_a, sin_a, off_y, off_x,
-                            out_y0, out_x0, out_h, out_w,
-                            pad_y, pad_x):
-    """Deskewed, blob-masked paragraph crops as one bilinear gather.
-
-    Equivalent to crop_and_rotate_single_paragraph (interpreter.py) on the
-    monochrome map: (mono * blob)[bbox] rotated by the deskew angle and
-    sliced to the rotated-mask bbox, zero-padded into a (B, HB, WB, 1)
-    bucket.
-
-    mono_stack : (N, H, W, 1) float32 monochrome maps.
-    blob       : (B, HB, WB) uint8 0/1: the paragraph blob mask of each
-                 sample's bbox at (0, 0), zero-padded.
-    page_idx   : (B,) page of each paragraph.
-    src_*      : (B,) paragraph bbox (y0, x0, h, w) in page coords.
-    cos/sin/off: (B,) float32 scipy rotate affine (out -> in, bbox-local).
-    out_y0/x0  : (B,) rotated-mask bbox offset in the rotated grid.
-    out_h/out_w: (B,) rotated-mask bbox extent; the output is zero beyond
-                 it (bilinear support can bleed one pixel past the
-                 order-0 mask bbox).
-    pad_y/pad_x: (B,) placement of the content inside the bucket,
-                 make_divisible_by's CENTER padding (the stride-2 Line
-                 convs are phase sensitive).
-    """
-    return _bilinear_crops(mono_stack, page_idx, src_y0, src_x0, src_h,
-                           src_w, cos_a, sin_a, off_y, off_x, out_y0,
-                           out_x0, out_h, out_w, pad_y, pad_x,
-                           blob.shape[1], blob.shape[2], blob=blob)
-
-
-def rotated_paragraph_crops_resident(mono_stack, para_stack, page_idx,
-                                     src_y0, src_x0, src_h, src_w,
-                                     cos_a, sin_a, off_y, off_x,
-                                     out_y0, out_x0, out_h, out_w,
-                                     pad_y, pad_x, out_hb, out_wb):
-    """rotated_paragraph_crops with the blob sampled from the device-
-    resident paragraph mask (`para_stack`, (N, H, W, 1) float 0/1; for
-    bboxes that hold one component only): the gather reads mono and mask
-    at the same source coordinates."""
-    return _bilinear_crops(mono_stack, page_idx, src_y0, src_x0, src_h,
-                           src_w, cos_a, sin_a, off_y, off_x, out_y0,
-                           out_x0, out_h, out_w, pad_y, pad_x, out_hb,
-                           out_wb, para_stack=para_stack)
-
-
-def zoomed_line_crops(crop_stack, para_idx,
-                      ratio_y, ratio_x, w_out,
-                      a_yy, a_yx, b_y, a_xy, a_xx, b_x,
-                      out_h, out_w):
+def zoomed_line_crops(crop_stack, para_idx, lh, lw, w_out, a_yy, a_yx, b_y,
+                      a_xy, a_xx, b_x, out_h, out_w):
     """Zoomed line crops as one nearest gather from the paragraph crops.
 
-    Equivalent to crop_lines_of_paragraph's per-line bbox crop + rot90
-    orientation fix + ndimage.zoom(order=0) + zero min-width pad
-    (pipeline.py), composed into one integer index map.  Returns
-    (Bl, out_h, out_w, 1) with columns >= w_out zeroed.
+    Equal to the host's extract_line: the line's box, turned upright by
+    np.rot90, through `ndimage.zoom(order=0)` to (out_h, w_out), zero
+    columns from w_out on.  Returns (Bl, out_h, out_w, 1).
 
     crop_stack : (P, HB, WB, 1) float32 paragraph crops.
     para_idx   : (Bl,) source crop of each line.
-    ratio_y/x  : (Bl,) float32 scipy zoom coordinate ratios per axis.
-    w_out      : (Bl,) true zoomed width of each line.
-    a_*/b_*    : (Bl,) rot90-inverse affine composed with the line bbox
-                 offset (maps post-rot90 coords to crop coords).
+    lh, lw     : (Bl,) the upright line's extent.
+    w_out      : (Bl,) its zoomed width.
+    a_*/b_*    : (Bl,) rot90-inverse affine composed with the line box's
+                 offset (maps upright coords to crop coords).
     out_h/out_w: the output bucket (32, a width-menu entry).
     """
     dev = crop_stack.device
     Bl = para_idx.shape[0]
 
-    def col(v, dtype):
-        return _per_sample(v, Bl, dtype, dev)
+    def col(v):
+        return v.to(torch.int64).reshape(Bl, 1, 1)
 
-    grid_y = torch.arange(out_h, dtype=torch.float32,
-                          device=dev).reshape(1, out_h, 1)
-    grid_x = torch.arange(out_w, dtype=torch.float32,
-                          device=dev).reshape(1, 1, out_w)
-    # scipy zoom: in = out * ratio, spline order 0 rounds via floor(x+0.5)
-    yr = torch.floor(grid_y * col(ratio_y, torch.float32) + 0.5).to(
-        torch.int64)
-    xr = torch.floor(grid_x * col(ratio_x, torch.float32) + 0.5).to(
-        torch.int64)
-    ys = (col(a_yy, torch.int64) * yr + col(a_yx, torch.int64) * xr
-          + col(b_y, torch.int64))
-    xs = (col(a_xy, torch.int64) * yr + col(a_xx, torch.int64) * xr
-          + col(b_x, torch.int64))
+    def axis(n_in, n_out, length, shape):
+        # scipy: coordinate k * (n_in - 1) / (n_out - 1) in float64, the
+        # nearest pixel floor(c + 0.5), zero past the input's last index
+        ratio = torch.where(n_out > 1, (n_in - 1).to(F64)
+                            / torch.clamp(n_out - 1, min=1).to(F64), 1.0)
+        k = torch.arange(length, dtype=F64, device=dev).reshape(shape)
+        coord = k * ratio
+        return (torch.floor(coord + 0.5).to(torch.int64),
+                coord <= (n_in - 1).to(F64))
 
+    lh_c, lw_c, w_c = col(lh), col(lw), col(w_out)
+    yr, y_ok = axis(lh_c, torch.full_like(lh_c, out_h), out_h, (1, -1, 1))
+    xr, x_ok = axis(lw_c, w_c, out_w, (1, 1, -1))
+    ys = col(a_yy) * yr + col(a_yx) * xr + col(b_y)
+    xs = col(a_xy) * yr + col(a_xx) * xr + col(b_x)
     HB, WB = crop_stack.shape[1], crop_stack.shape[2]
     ys = torch.clamp(ys, 0, HB - 1)
     xs = torch.clamp(xs, 0, WB - 1)
-    src = col(para_idx, torch.int64)
-    values = crop_stack[:, :, :, 0].reshape(-1)[(src * HB + ys) * WB + xs]
+    values = crop_stack[:, :, :, 0].reshape(-1)[(col(para_idx) * HB + ys)
+                                                * WB + xs]
     cols = torch.arange(out_w, device=dev).reshape(1, 1, out_w)
-    values = torch.where(cols < col(w_out, torch.int64), values,
-                         torch.zeros((), device=dev))
-    return values[..., None]
+    keep = y_ok & x_ok & (cols < w_c)
+    return torch.where(keep, values, torch.zeros((), device=dev))[..., None]
+
+
+def to_u8_steps(x):
+    """round(x * 255) / 255 in float32, round half to even: the values the
+    host cascade's uint8 transfers give its device stages."""
+    return torch.round(x * 255.0) / 255.0
 
 
 # ---------------------------------------------------------------------------
-# Packed plan matrices: every stage launch carries ~20 scalars per sample,
-# packed into ONE float32 matrix (integer fields are below 2^24, exact in
-# float32) and sliced into columns on the device
+# Plan matrices: every stage launch carries its plans as ONE int32 matrix,
+# sliced into columns on the device
 # ---------------------------------------------------------------------------
 
-#: column order of the integer fields of the paragraph-stage plan matrix
-PARAGRAPH_INT_FIELDS = ('page', 'y0', 'x0', 'h', 'w', 'ry0', 'rx0',
-                        'out_h', 'out_w', 'py', 'px', 'hv', 'wv')
-#: column order of its float fields, after the integer ones
-PARAGRAPH_FLT_FIELDS = ('cos', 'sin', 'off_y', 'off_x')
-#: column order of the integer fields of the line-stage plan matrix
-LINE_INT_FIELDS = ('para_idx', 'w_out', 'a_yy', 'a_yx', 'b_y',
-                   'a_xy', 'a_xx', 'b_x', 'w_valid')
-#: column order of its float fields, after the integer ones
-LINE_FLT_FIELDS = ('ratio_y', 'ratio_x')
+#: column order of the paragraph-stage plan matrix
+PARAGRAPH_FIELDS = ('page', 'label', 'y0', 'x0', 'h', 'w', 'angle', 'ry0',
+                    'rx0', 'out_h', 'out_w', 'py', 'px', 'hv', 'wv')
+#: column order of the line-stage plan matrix
+LINE_FIELDS = ('para_idx', 'lh', 'lw', 'w_out', 'a_yy', 'a_yx', 'b_y',
+               'a_xy', 'a_xx', 'b_x', 'w_valid')
 
 
-def _unpack(plan, int_fields, flt_fields):
-    ni = len(int_fields)
-    ints = plan[:, :ni].to(torch.int32)
-    iv = {name: ints[:, i] for i, name in enumerate(int_fields)}
-    fv = {name: plan[:, ni + i] for i, name in enumerate(flt_fields)}
-    return iv, fv
+def _unpack(plan, fields):
+    return {name: plan[:, i] for i, name in enumerate(fields)}
 
 
 def unpack_paragraph_plan(plan):
-    """ONE (B, 17) float32 plan matrix -> per-field (B,) column dicts
-    (integer fields cast back exactly)."""
-    return _unpack(plan, PARAGRAPH_INT_FIELDS, PARAGRAPH_FLT_FIELDS)
+    """ONE (B, 15) int32 plan matrix -> per-field (B,) column dict."""
+    return _unpack(plan, PARAGRAPH_FIELDS)
 
 
 def unpack_line_plan(plan):
-    """ONE (B, 11) float32 plan matrix -> per-field (B,) column dicts."""
-    return _unpack(plan, LINE_INT_FIELDS, LINE_FLT_FIELDS)
+    """ONE (B, 11) int32 plan matrix -> per-field (B,) column dict."""
+    return _unpack(plan, LINE_FIELDS)
 
 
-
-
-# ---------------------------------------------------------------------------
-# Two-pass paragraph crops (the tables mode's sampler)
-#
-#   1. parity fold: angles in (45, 135) degrees sample the rot90'd source,
-#      so the residual rotation has |cos| >= |sin|;
-#   2. bbox extraction: an integer gather of the (folded) bbox;
-#   3. rotation as two 1D passes (Catmull-Smith / Paeth): per line an
-#      integer shift and a 2-tap fractional blend, then a 2-tap resample
-#      at a shared scale.
-#
-# Level paragraphs (the identity affine) take integer positions and
-# weights 0 and 1, so their crops equal the gather sampler's bit for bit.
-# ---------------------------------------------------------------------------
-
-
-def _log_shift_cols(padded, v, K):
-    """out[b, i, x] = padded[b, i, x + v[b, i]] for x < K, as one gather;
-    reads past the end repeat the last column."""
-    last = padded.shape[2] - 1
-    idx = torch.clamp(torch.arange(K, device=padded.device).reshape(1, 1, K)
-                      + v[:, :, None], max=last)
-    return torch.gather(padded, 2, idx)
-
-
-def _affine_pass(src, scale, line_off, pos_off, S):
-    """One resample pass: dst[b, i, j] = linear interpolation of
-    src[b, i, .] at scale_b*j + line_off_b*(i - I//2) + pos_off_b, zero
-    outside [0, K-1].  S bounds |line_off*(i - I//2)|.  In bfloat16 the
-    blend rounds per operation and the resample rounds its float32 sum
-    once, as the JAX package's bf16 elementwise blend and one-hot
-    product do."""
-    B, I, K = src.shape
-    dev, dt = src.device, src.dtype
-    i_rel = torch.arange(I, dtype=torch.float32, device=dev) - (I // 2)
-    q = line_off[:, None] * i_rel[None, :]                        # (B, I)
-    d = torch.floor(q)
-    f = (q - d).to(dt)
-    d = torch.clamp(d.to(torch.int64), -S, S)
-    padded = torch.cat([src.new_zeros((B, I, 2 * S)), src,
-                        src.new_zeros((B, I, 2 * S + 1))], dim=2)
-    shifted = _log_shift_cols(padded, S + d, K + 2 * S + 1)
-    # per-line fractional blend: blended[x] = src[x - S + q], zero-extended
-    blended = (shifted[:, :, :K + 2 * S] * (1 - f)[:, :, None]
-               + shifted[:, :, 1:] * f[:, :, None])
-    pos0 = _fma(scale[:, None], torch.arange(K, dtype=torch.float32,
-                                             device=dev)[None, :],
-                pos_off[:, None])                                 # (B, J)
-    x0 = torch.floor(pos0)
-    w = (pos0 - x0).to(dt)
-    xi = x0.to(torch.int64) + S
-    N = K + 2 * S
-
-    def tap(idx):
-        inside = (idx >= 0) & (idx < N)
-        got = torch.gather(blended, 2, torch.clamp(idx, 0, N - 1)[
-            :, None, :].expand(B, I, K))
-        return torch.where(inside[:, None, :], got, 0).to(torch.float32)
-
-    out = (tap(xi) * (1 - w).to(torch.float32)[:, None, :]
-           + tap(xi + 1) * w.to(torch.float32)[:, None, :])
-    return out.to(dt)
-
-
-def _twopass_crops(pages, blob, page_idx, src_y0, src_x0, src_h, src_w,
-                   cos_a, sin_a, off_y, off_x, out_y0, out_x0,
-                   out_h, out_w, pad_y, pad_x, out_hb, out_wb,
-                   precision=None):
-    """Core of both two-pass crop variants.
-
-    pages: (N, HP, WP) float32 page planes, already paragraph-masked on
-    the resident path; blob: (B, HB, WB) bbox-local 0/1 blob or None.
-    Other arguments as rotated_paragraph_crops.  Returns (B, HB, WB, 1)
-    float32.  In 'bf16' the page is rounded to bfloat16 first and each
-    pass's result after it, as in the JAX package."""
-    dev = pages.device
-    B, HB, WB = page_idx.shape[0], out_hb, out_wb
-    dt = (torch.bfloat16 if precision_policy.resolve(precision) == 'bf16'
-          else torch.float32)
-    HP, WP = pages.shape[1], pages.shape[2]
-    flat = pages.to(dt).reshape(-1)
-
-    def col(v, dtype=torch.int64):
-        return _per_sample(v, B, dtype, dev)
-
-    page, sy0, sx0 = col(page_idx), col(src_y0), col(src_x0)
-    sh, sw = col(src_h), col(src_w)
-    cos_v, sin_v = (torch.as_tensor(v, device=dev).to(torch.float32)
-                    for v in (cos_a, sin_a))
-    oy, ox = (torch.as_tensor(v, device=dev).to(torch.float32)
-              for v in (off_y, off_x))
-
-    # parity fold: sample the rot90'd source when |sin| > |cos|
-    par = torch.abs(sin_v) > torch.abs(cos_v)
-    c_r = torch.where(par, sin_v, cos_v)
-    s_r = torch.where(par, -cos_v, sin_v)
-    swf = sw.reshape(B).to(torch.float32)
-    oy_r = torch.where(par, swf - 1.0 - ox, oy)
-    ox_r = torch.where(par, oy, ox)
-
-    zero = torch.zeros((), dtype=dt, device=dev)
-    iH = torch.arange(HB, device=dev).reshape(1, HB, 1)
-    iW = torch.arange(WB, device=dev).reshape(1, 1, WB)
-
-    def take(ys, xs, valid):
-        inside = valid & (ys >= 0) & (ys < HP) & (xs >= 0) & (xs < WP)
-        at = ((page * HP + torch.clamp(ys, 0, HP - 1)) * WP
-              + torch.clamp(xs, 0, WP - 1))
-        return torch.where(inside, flat[at], zero)
-
-    # parity 0: e0[i, j] = page[sy0 + i, sx0 + j]
-    e0 = take(sy0 + iH, sx0 + iW, (iH < sh) & (iW < sw))
-    # parity 1: e90[i, j] = page[sy0 + j, sx0 + sw - 1 - i], the rot90 of
-    # the bbox crop
-    e90 = take(sy0 + iW, sx0 + sw - 1 - iH, (iW < sh) & (iH < sw))
-    if blob is not None:
-        blob = blob.to(dt)
-        e0 = e0 * blob
-        # e90[i, j] takes the blob at (j, sw - 1 - i)
-        bx = sw - 1 - iH
-        inside = (iW < HB) & (iH < sw) & (bx < WB)
-        at = ((torch.arange(B, device=dev).reshape(B, 1, 1) * HB
-               + torch.clamp(iW, max=HB - 1)) * WB + torch.clamp(bx, 0, WB - 1))
-        e90 = e90 * torch.where(inside, blob.reshape(-1)[at], zero)
-    src = torch.where(par[:, None, None], e90, e0)
-
-    gy0 = (torch.as_tensor(out_y0, device=dev).to(torch.float32)
-           - torch.as_tensor(pad_y, device=dev).to(torch.float32))
-    gx0 = (torch.as_tensor(out_x0, device=dev).to(torch.float32)
-           - torch.as_tensor(pad_x, device=dev).to(torch.float32))
-
-    # pass 1 (x): X'(y, g) = (1/c)(g + gx0) - (s/c) y + ox + (s/c) oy,
-    # which composed with pass 2's rows lands on the affine's backward map
-    inv_c = 1.0 / c_r
-    t = s_r * inv_c                                               # |t| <= 1
-    h_mid = _affine_pass(
-        src, inv_c, -t,
-        _fma(-t, HB // 2, _fma(t, oy_r, _fma(inv_c, gx0, ox_r))),
-        HB - HB // 2 + 1)
-    # pass 2 (y): Y(r, g) = c (r + gy0) + s (g + gx0) + oy, along the rows
-    # of the transposed intermediate
-    out_t = _affine_pass(
-        h_mid.transpose(1, 2), c_r, s_r,
-        _fma(s_r, WB // 2, _fma(c_r, gy0, s_r * gx0) + oy_r),
-        int(np.ceil(0.70711 * (WB - WB // 2))) + 1)
-    crops = out_t.transpose(1, 2).to(torch.float32)
-
-    # domain and output-window masks from the original affine, the gather
-    # sampler's expressions
-    grid_y = iH.to(torch.float32) + gy0.reshape(B, 1, 1)
-    grid_x = iW.to(torch.float32) + gx0.reshape(B, 1, 1)
-    cos_c, sin_c = cos_v.reshape(B, 1, 1), sin_v.reshape(B, 1, 1)
-    in_y = _fma(cos_c, grid_y, sin_c * grid_x) + oy.reshape(B, 1, 1)
-    in_x = _fma(-sin_c, grid_y, cos_c * grid_x) + ox.reshape(B, 1, 1)
-    shf = sh.to(torch.float32)
-    in_domain = ((in_y >= 0) & (in_y <= shf - 1)
-                 & (in_x >= 0) & (in_x <= swf.reshape(B, 1, 1) - 1))
-    py, px = col(pad_y), col(pad_x)
-    in_slice = ((iH >= py) & (iH < py + col(out_h))
-                & (iW >= px) & (iW < px + col(out_w)))
-    return torch.where(in_domain & in_slice, crops,
-                       torch.zeros((), device=dev))[..., None]
-
-
-def twopass_paragraph_crops(mono_stack, blob, page_idx,
-                            src_y0, src_x0, src_h, src_w,
-                            cos_a, sin_a, off_y, off_x,
-                            out_y0, out_x0, out_h, out_w,
-                            pad_y, pad_x, precision=None):
-    """rotated_paragraph_crops by the two-pass sampler; blob (B, HB, WB)
-    0/1 bytes."""
-    return _twopass_crops(mono_stack[:, :, :, 0], blob, page_idx,
-                          src_y0, src_x0, src_h, src_w, cos_a, sin_a,
-                          off_y, off_x, out_y0, out_x0, out_h, out_w,
-                          pad_y, pad_x, blob.shape[1], blob.shape[2],
-                          precision=precision)
-
-
-def twopass_paragraph_crops_resident(mono_stack, para_stack, page_idx,
-                                     src_y0, src_x0, src_h, src_w,
-                                     cos_a, sin_a, off_y, off_x,
-                                     out_y0, out_x0, out_h, out_w,
-                                     pad_y, pad_x, out_hb, out_wb,
-                                     precision=None):
-    """rotated_paragraph_crops_resident by the two-pass sampler: the
-    paragraph mask multiplies the page before resampling, as the gather
-    multiplies both at the same integer source coordinates."""
-    masked = mono_stack[:, :, :, 0] * para_stack[:, :, :, 0]
-    return _twopass_crops(masked, None, page_idx, src_y0, src_x0,
-                          src_h, src_w, cos_a, sin_a, off_y, off_x,
-                          out_y0, out_x0, out_h, out_w, pad_y, pad_x,
-                          out_hb, out_wb, precision=precision)
+def line_plan_fields(rotation, y0, y1, x0, x1, char_h=CHAR_INPUT_HEIGHT,
+                     char_min_w=CHAR_FIXED_WIDTH):
+    """A line's gather plan from its box in the paragraph crop and the
+    text's rotation (LINE_FIELDS but para_idx), as extract_line crops it:
+    {field: int}."""
+    h_l, w_l = y1 - y0, x1 - x0
+    (lh, lw), (a_yy, a_yx, b_y, a_xy, a_xx, b_x) = rot90_inverse_affine(
+        rotation, h_l, w_l)
+    w_out = zoom_output_width(lw, char_h / lh)
+    return {'lh': lh, 'lw': lw, 'w_out': w_out, 'a_yy': a_yy, 'a_yx': a_yx,
+            'b_y': b_y + y0, 'a_xy': a_xy, 'a_xx': a_xx, 'b_x': b_x + x0,
+            'w_valid': max(w_out, char_min_w)}
 
 
 # ---------------------------------------------------------------------------
-# Stage functions
+# The paragraph stage
 # ---------------------------------------------------------------------------
 
 
-def _thresholded_bands(params, crops, h_valid, w_valid, precision=None):
-    """Masked Line forward + the band threshold (arr > 0.5*(mean+max) over
-    the valid region) -> (B, H, W, 2) bool band masks."""
-    pred = line_forward_masked(params, crops, h_valid, w_valid,
-                               prefix='Line', precision=precision)
-    pred = _mask_hw(pred, h_valid, w_valid)
-    hv = h_valid.reshape(-1, 1, 1, 1)
-    wv = w_valid.reshape(-1, 1, 1, 1)
-    rows = torch.arange(pred.shape[1], device=pred.device).reshape(
-        1, -1, 1, 1)
-    cols = torch.arange(pred.shape[2], device=pred.device).reshape(
-        1, 1, -1, 1)
-    valid = (rows < hv) & (cols < wv)
-    mean = pred.sum(dim=(1, 2), keepdim=True) / (hv.float() * wv.float())
-    peak = pred.amax(dim=(1, 2), keepdim=True)
-    return (pred > 0.5 * (mean + peak)) & valid
-
-
-def _finish_paragraph_stage(params, crops, h_valid, w_valid, precision=None,
-                            tables=False, syncs=None):
-    """Tail of both paragraph stages: Line forward and band threshold,
-    then the band masks as uint8 0/1 (parity mode), or, with tables=True,
-    the crops sheared by tables_state (with the shear margin of rotated
-    crops, whose content starts at row 0) and ONE (B, NBYTES) uint8 tables
-    payload (pack_tables_payload); `syncs` counts tables_state's host
-    syncs."""
-    bands = _thresholded_bands(params, crops, h_valid, w_valid,
-                               precision=precision)
-    if not tables:
-        return crops, bands.to(torch.uint8)
-    crops, *state = tables_state(bands, crops, syncs=syncs)
-    return crops, pack_tables_payload(*state)
-
-
-def extract_paragraph_crops(mono_stack, blob, page_idx,
-                            src_y0, src_x0, src_h, src_w,
-                            cos_a, sin_a, off_y, off_x,
-                            out_y0, out_x0, out_h, out_w,
-                            pad_y, pad_x, precision=None, sampler='gather'):
-    """Paragraph crops with the blobs uploaded, by `sampler` ('gather' or
-    'twopass')."""
-    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
-            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x)
-    if sampler == 'twopass':
-        return twopass_paragraph_crops(mono_stack, blob, *args,
-                                       precision=precision)
-    return rotated_paragraph_crops(mono_stack, blob, *args)
-
-
-def extract_paragraph_crops_resident(mono_stack, para_stack, page_idx,
-                                     src_y0, src_x0, src_h, src_w,
-                                     cos_a, sin_a, off_y, off_x,
-                                     out_y0, out_x0, out_h, out_w,
-                                     pad_y, pad_x, out_hb, out_wb,
-                                     precision=None, sampler='gather'):
-    """Paragraph crops with the blobs read from the resident paragraph
-    mask, by `sampler`."""
-    args = (page_idx, src_y0, src_x0, src_h, src_w, cos_a, sin_a,
-            off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x,
-            out_hb, out_wb)
-    if sampler == 'twopass':
-        return twopass_paragraph_crops_resident(
-            mono_stack, para_stack, *args, precision=precision)
-    return rotated_paragraph_crops_resident(mono_stack, para_stack, *args)
-
-
-def paragraph_stage(params, mono_stack, blob, page_idx,
-                    src_y0, src_x0, src_h, src_w,
-                    cos_a, sin_a, off_y, off_x, out_y0, out_x0,
-                    out_h, out_w, pad_y, pad_x, h_valid, w_valid,
-                    precision=None, tables=False, sampler='gather',
-                    syncs=None):
-    """Deskewed-paragraph stage with the blobs uploaded: crop resampling
-    by `sampler` ('gather' or 'twopass') + masked Line forward + band
-    threshold.  Returns (crops, band masks | tables payload)."""
-    crops = extract_paragraph_crops(
-        mono_stack, blob, page_idx, src_y0, src_x0, src_h, src_w, cos_a,
-        sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y, pad_x,
-        precision=precision, sampler=sampler)
-    return _finish_paragraph_stage(params, crops, h_valid, w_valid,
-                                   precision=precision, tables=tables,
-                                   syncs=syncs)
-
-
-def paragraph_stage_rot_resident(params, mono_stack, para_stack, page_idx,
-                                 src_y0, src_x0, src_h, src_w,
-                                 cos_a, sin_a, off_y, off_x,
-                                 out_y0, out_x0, out_h, out_w,
-                                 pad_y, pad_x, h_valid, w_valid,
-                                 out_hb, out_wb, precision=None,
-                                 tables=False, sampler='gather', syncs=None):
-    """paragraph_stage without the blob upload (bboxes that hold one
-    component): the blob is read from the resident paragraph mask."""
-    crops = extract_paragraph_crops_resident(
-        mono_stack, para_stack, page_idx, src_y0, src_x0, src_h, src_w,
-        cos_a, sin_a, off_y, off_x, out_y0, out_x0, out_h, out_w, pad_y,
-        pad_x, out_hb, out_wb, precision=precision, sampler=sampler)
-    return _finish_paragraph_stage(params, crops, h_valid, w_valid,
-                                   precision=precision, tables=tables,
-                                   syncs=syncs)
+def paragraph_stage(params, mono, labels, plan, out_hb, out_wb,
+                    precision=None):
+    """Paragraph crops (paragraph_crops) + the masked Line forward on
+    them in uint8 steps + the host cascade's band threshold.  Returns
+    (crops (B, out_hb, out_wb, 1) float32, bands (B, out_hb, out_wb, 2)
+    bool)."""
+    iv = unpack_paragraph_plan(plan)
+    crops = paragraph_crops(
+        mono, labels, iv['page'], iv['label'], iv['y0'], iv['x0'], iv['h'],
+        iv['w'], iv['angle'], iv['ry0'], iv['rx0'], iv['out_h'],
+        iv['out_w'], iv['py'], iv['px'], out_hb, out_wb)
+    pred = line_forward_masked(params, to_u8_steps(crops), iv['hv'],
+                               iv['wv'], prefix='Line', precision=precision)
+    return crops, band_threshold(pred, iv['hv'], iv['wv'])
 
 
 # ---------------------------------------------------------------------------
-# Device paragraph planner: the page CCL and _page_paragraph_plans' plan
-# arithmetic ('twopass' branch) on the card, where the mask already is
+# Device paragraph planner: the host planner's arithmetic on the card,
+# where the mask already is
 # ---------------------------------------------------------------------------
 
-#: sweep cap of the page CCL; hitting it flags the page for the host
-#: planner
-PAGE_CCL_MAX_ITERS = 96
+#: angles of the deskew search evaluated at once (bounds its memory)
+ANGLE_BLOCK = 16
 
 
-@functools.lru_cache(maxsize=None)
-def _menu_table(menu, device):
-    """(hb, wb) columns of a crop-shape menu on `device`, copied once."""
-    return torch.as_tensor(np.asarray(menu, np.int64).T, device=device)
+def page_labels(para_stack, k_max):
+    """4-connected labels of (N, H, W) paragraph masks by the band_ccl
+    kernel: ((N, H, W) int32 component ranks, -1 elsewhere; (N, k_max, 7)
+    statistics; (N,) component counts)."""
+    N, H, W = para_stack.shape
+    full_h = torch.full((N,), H, dtype=torch.int32, device=para_stack.device)
+    full_w = torch.full((N,), W, dtype=torch.int32, device=para_stack.device)
+    stats, n_comp, labels = band_ccl(para_stack > 0, full_h, full_w, k_max,
+                                     labels=True)
+    return labels, stats, n_comp
 
 
-def _page_component_plans(lab, menu, k_max):
-    """Paragraph-stage plan rows of each page from its CCL labels.
-
-    lab (B, H, W) int64 labels of grid_ccl_labels; menu: a tuple of
-    (hb, wb) crop shapes.  Returns (roots (B, K) int64, the components'
-    root labels in raster order, _CCL_BIG past the last; plan (B, K, 18)
-    float32 rows: PARAGRAPH_INT_FIELDS, PARAGRAPH_FLT_FIELDS and the root
-    label (-1 on dead slots); menu_idx (B, K) int64 into `menu`; n_comp
-    (B,)).
-
-    The field arithmetic of OCRPipeline._page_paragraph_plans (the
-    'twopass' branch): the 1-degree deskew sweep of find_rotation_angle
-    over each row's extreme pixels, rotate_affine's geometry, the
-    analytic rotated bbox with its (|cos| + |sin|) / 2 margin, the centre
-    pad to a multiple of 16, and _line_menu_shape's pick with the shear
-    margin, every clamp to the chosen entry.  Dead slots carry a 4x4
-    filler crop.  The JAX package builds a (K, H, W) membership tensor
-    per page; here the bboxes and per-row extremes are integer
-    scatter_reduces keyed by each label's rank among the roots."""
-    B, H, W = lab.shape
+def _deskew_degrees(labels, y0, x0, live, k_max):
+    """find_rotation_angle of each component: the whole degree in [0, 180]
+    of least height of y*cos - x*sin over each row's extreme pixels
+    (bbox-local, float64), 0 within a degree of level.  (B, K) int64."""
+    B, H, W = labels.shape
     K = k_max
-    dev = lab.device
-    flat = lab.reshape(B, H * W)
+    dev = labels.device
+    flat = labels.reshape(B, H * W).to(torch.int64)
+    slot = torch.where((flat >= 0) & (flat < K), flat, K)
     lin = torch.arange(H * W, device=dev)
-    is_root = (flat == lin) & (flat < _CCL_BIG)
-    n_comp = is_root.sum(dim=1)
-    rank = torch.cumsum(is_root, dim=1) - 1
-    roots = torch.full((B, K + 1), _CCL_BIG, dtype=torch.int64, device=dev)
-    roots.scatter_(1, torch.where(is_root & (rank < K), rank, K),
-                   lin.expand(B, -1))
-    roots = roots[:, :K]
-    live = roots < _CCL_BIG
-
-    member = flat < _CCL_BIG
-    slot = torch.gather(rank, 1, torch.where(member, flat, 0))
-    slot = torch.where(member & (slot < K), slot, K)
-    ys, xs = lin // W, lin % W
-    key = slot * H + ys                                      # (slot, row)
+    key = slot * H + lin // W
+    xs = (lin % W).expand(B, -1)
 
     def row_extreme(init, reduce):
         out = torch.full((B, (K + 1) * H), init, dtype=torch.int64,
                          device=dev)
-        out.scatter_reduce_(1, key, xs.expand(B, -1), reduce)
+        out.scatter_reduce_(1, key, xs, reduce)
         return out.reshape(B, K + 1, H)[:, :K]
 
-    xmin_r = row_extreme(W, 'amin')                          # (B, K, H)
-    xmax_r = row_extreme(-1, 'amax')
-    rows_any = xmax_r >= 0
-    ih = torch.arange(H, device=dev)
-    y0 = torch.where(rows_any, ih, H).amin(dim=2)
-    y1 = torch.where(rows_any, ih, -1).amax(dim=2)
-    x0 = xmin_r.amin(dim=2)
-    x1 = xmax_r.amax(dim=2)
-    h = torch.clamp(y1 - y0 + 1, min=1)
-    w = torch.clamp(x1 - x0 + 1, min=1)
-    hf, wf = h.to(torch.float32), w.to(torch.float32)
+    xmin_r, xmax_r = row_extreme(W, 'amin'), row_extreme(-1, 'amax')
+    rows = (xmax_r >= 0)[..., None]
+    ysl = (torch.arange(H, device=dev) - y0[..., None]).to(F64)[..., None]
+    xlo = (xmin_r - x0[..., None]).to(F64)[..., None]
+    xhi = (xmax_r - x0[..., None]).to(F64)[..., None]
+    cos_t, sin_t = _angle_table(dev)
+    heights = []
+    for a in range(0, 181, ANGLE_BLOCK):
+        tc, ts = cos_t[a:a + ANGLE_BLOCK], sin_t[a:a + ANGLE_BLOCK]
+        lo = ysl * tc - xlo * ts
+        hi = ysl * tc - xhi * ts
+        top = torch.maximum(torch.where(rows, lo, -np.inf).amax(dim=2),
+                            torch.where(rows, hi, -np.inf).amax(dim=2))
+        bottom = torch.minimum(torch.where(rows, lo, np.inf).amin(dim=2),
+                               torch.where(rows, hi, np.inf).amin(dim=2))
+        heights.append(top - bottom)
+    degree = torch.argmin(torch.cat(heights, dim=2), dim=2)     # first
+    level = (degree < 1) | (degree > 179) | ~live
+    return torch.where(level, 0, degree)
 
-    # deskew angle: the height of y*cos - x*sin over each row's extreme
-    # pixels (bbox-local) on a 1-degree grid over [0, 180]
-    f32 = torch.float32
-    ysl = (ih - y0[..., None]).to(f32)                       # (B, K, H)
-    xlo = (xmin_r - x0[..., None]).to(f32)
-    xhi = (xmax_r - x0[..., None]).to(f32)
-    tc, ts = _deskew_tables(dev)
-    big = 3.0e8
-    vm = rows_any[..., None]
 
-    def proj(x):
-        return _fma(ysl[..., None], tc, -(x[..., None] * ts))  # (B, K, H, A)
+def _rotated_mask_boxes(labels, k_max, y0, x0, h, w, angle):
+    """The box (ry0, rx0, out_h, out_w) of each component's order-0
+    rotated mask, `ndimage.rotate(mask, angle, order=0, reshape=True)`:
+    an output pixel is set iff the input pixel nearest its coordinate
+    (floor(c + 0.5), inside the input) is the component's.  Each
+    component pixel's preimage is a unit square around R^T (p - off),
+    which holds at most two whole coordinates a side, so four candidates
+    a pixel find every set output pixel.  (B, K) int64 each."""
+    B, H, W = labels.shape
+    K = k_max
+    dev = labels.device
+    c, s, rh, rw, oy, ox = rotate_geometry(angle, h, w)
+    flat = labels.reshape(B, H * W).to(torch.int64)
+    member = (flat >= 0) & (flat < K)
+    slot = torch.where(member, flat, K)
 
-    plo, phi = proj(xlo), proj(xhi)
-    pmax = torch.maximum(torch.where(vm, plo, -big).amax(dim=2),
-                         torch.where(vm, phi, -big).amax(dim=2))
-    pmin = torch.minimum(torch.where(vm, plo, big).amin(dim=2),
-                         torch.where(vm, phi, big).amin(dim=2))
-    del plo, phi
-    degree = torch.argmin(pmax - pmin, dim=2)                # first minimum
-    level = (degree < 1) | (degree > 179)
+    def per_pixel(t):
+        padded = torch.cat([t, t.new_zeros((B, 1))], dim=1)
+        return torch.gather(padded, 1, slot)
 
-    # rotate_affine: the geometry of scipy's rotate(angle, reshape=True)
-    ca, sa = tc[degree], ts[degree]
-    zero = torch.zeros_like(hf)
-    cyc = torch.stack([zero, zero, hf, hf], dim=2)
-    cxc = torch.stack([zero, wf, zero, wf], dim=2)
-    py_c = _fma(ca[..., None], cyc, sa[..., None] * cxc)     # (B, K, 4)
-    px_c = _fma(-sa[..., None], cyc, ca[..., None] * cxc)
-    rh = torch.floor(py_c.amax(dim=2) - py_c.amin(dim=2) + 0.5).to(
-        torch.int64)
-    rw = torch.floor(px_c.amax(dim=2) - px_c.amin(dim=2) + 0.5).to(
-        torch.int64)
-    rhf, rwf = rh.to(f32), rw.to(f32)
-    off_y = (hf - 1.0) / 2.0 - (ca * (rhf - 1.0) / 2.0
-                                + sa * (rwf - 1.0) / 2.0)
-    off_x = (wf - 1.0) / 2.0 - (-sa * (rhf - 1.0) / 2.0
-                                + ca * (rwf - 1.0) / 2.0)
+    c, s, oy, ox, rh, rw = map(per_pixel, (c, s, oy, ox, rh, rw))
+    lin = torch.arange(H * W, device=dev)
+    yl = lin // W - per_pixel(y0)
+    xl = lin % W - per_pixel(x0)
+    hp, wp = per_pixel(h), per_pixel(w)
+    dy, dx = yl.to(F64) - oy, xl.to(F64) - ox
+    qy0 = torch.ceil(c * dy - s * dx - 0.7072)
+    qx0 = torch.ceil(s * dy + c * dx - 0.7072)
+    boxes = [torch.full((B, K + 1), init, dtype=torch.int64, device=dev)
+             for init in (2 ** 40, -1, 2 ** 40, -1)]
+    for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        qy, qx = qy0 + a, qx0 + b
+        cy, cx = _source_coords(c, s, oy, ox, qy, qx)
+        qy, qx = qy.to(torch.int64), qx.to(torch.int64)
+        hit = (member & (qy >= 0) & (qy < rh) & (qx >= 0) & (qx < rw)
+               & (cy >= 0) & (cy <= (hp - 1).to(F64)) & (cx >= 0)
+               & (cx <= (wp - 1).to(F64))
+               & (torch.floor(cy + 0.5).to(torch.int64) == yl)
+               & (torch.floor(cx + 0.5).to(torch.int64) == xl))
+        at = torch.where(hit, slot, K)
+        for box, q, reduce in zip(boxes, (qy, qy, qx, qx),
+                                  ('amin', 'amax', 'amin', 'amax')):
+            box.scatter_reduce_(1, at, q, reduce)
+    ymin, ymax, xmin, xmax = (b[:, :K] for b in boxes)
+    hit = ymax >= 0
+    ry0 = torch.where(hit, ymin, 0)
+    rx0 = torch.where(hit, xmin, 0)
+    return (ry0, rx0, torch.where(hit, ymax + 1 - ymin, 1),
+            torch.where(hit, xmax + 1 - xmin, 1))
 
-    # the rotated bbox of the extreme pixels, plus the sampling margin
-    dy = ysl - off_y[..., None]
-    dlo = xlo - off_x[..., None]
-    dhi = xhi - off_x[..., None]
-    c3, s3 = ca[..., None], sa[..., None]
 
-    def extreme(lo, hi, fill, reduce):
-        pick = torch.minimum if reduce == 'amin' else torch.maximum
-        return pick(getattr(torch.where(rows_any, lo, fill), reduce)(dim=2),
-                    getattr(torch.where(rows_any, hi, fill), reduce)(dim=2))
+def _page_component_plans(labels, stats, n_comp, menu, k_max):
+    """Paragraph-stage plan rows of each page from its labels.
 
-    py_lo, py_hi = _fma(c3, dy, -(s3 * dlo)), _fma(c3, dy, -(s3 * dhi))
-    px_lo, px_hi = _fma(s3, dy, c3 * dlo), _fma(s3, dy, c3 * dhi)
-    py_min = extreme(py_lo, py_hi, big, 'amin')
-    py_max = extreme(py_lo, py_hi, -big, 'amax')
-    px_min = extreme(px_lo, px_hi, big, 'amin')
-    px_max = extreme(px_lo, px_hi, -big, 'amax')
-    marg = (ca.abs() + sa.abs()) / 2.0
-    ry0 = torch.clamp(torch.floor(py_min - marg), min=0.0).to(torch.int64)
-    rx0 = torch.clamp(torch.floor(px_min - marg), min=0.0).to(torch.int64)
-    ry1 = torch.minimum(torch.ceil(py_max + marg).to(torch.int64), rh - 1)
-    rx1 = torch.minimum(torch.ceil(px_max + marg).to(torch.int64), rw - 1)
-    out_h = ry1 - ry0 + 1
-    out_w = rx1 - rx0 + 1
+    labels (B, H, W) component ranks, stats (B, K, 7) and n_comp (B,) of
+    page_labels; menu: a tuple of (hb, wb) crop shapes.  Returns (plan
+    (B, K, 15) int32 rows in PARAGRAPH_FIELDS order, menu_idx (B, K)
+    int64 into `menu`, n_comp (B,)).
 
-    # level paragraphs take the identity affine
-    ca = torch.where(level, 1.0, ca)
-    sa = torch.where(level, 0.0, sa)
-    off_y = torch.where(level, 0.0, off_y)
-    off_x = torch.where(level, 0.0, off_x)
-    ry0 = torch.where(level, 0, ry0)
-    rx0 = torch.where(level, 0, rx0)
-    out_h = torch.where(level, h, out_h)
-    out_w = torch.where(level, w, out_w)
-
-    # make_divisible_by's centre pad, which always adds at least one
-    pad_h = 16 - out_h % 16
-    pad_w = 16 - out_w % 16
+    The arithmetic of OCRPipeline._page_paragraph_plans: the component's
+    box, find_rotation_angle's degree, the box of the order-0 rotated
+    mask, make_divisible_by's centre pad to a multiple of 16 and
+    pick_line_shape's menu entry, every field clamped to it.  Dead slots
+    carry a 4x4 filler crop of no component (label -1)."""
+    B = labels.shape[0]
+    K = k_max
+    dev = labels.device
+    live = torch.arange(K, device=dev)[None, :] < n_comp[:, None]
+    st = stats.to(torch.int64)
+    y0, x0 = st[..., 3], st[..., 5]
+    h = torch.clamp(st[..., 4] - y0, min=1)
+    w = torch.clamp(st[..., 6] - x0, min=1)
+    angle = _deskew_degrees(labels, y0, x0, live, K)
+    ry0, rx0, out_h, out_w = _rotated_mask_boxes(labels, K, y0, x0, h, w,
+                                                 angle)
+    pad_h, pad_w = 16 - out_h % 16, 16 - out_w % 16
     hv, wv = out_h + pad_h, out_w + pad_w
     py, px = pad_h // 2, pad_w // 2
-
-    # _line_menu_shape(shear_margin=True), and the clamps to its pick
-    fold = sa.abs() > ca.abs()
-    need_h = torch.maximum(torch.maximum(h, hv), torch.where(fold, w, 0))
-    need_w = torch.maximum(torch.maximum(w, wv), torch.where(fold, h, 0))
-    menu_idx = torch.full_like(need_h, len(menu) - 1)
+    menu_idx = torch.full_like(hv, len(menu) - 1)
     for mi in range(len(menu) - 1, -1, -1):
         mhb, mwb = menu[mi]
-        fits = ((need_h + 2 * _shear_span(mwb) <= mhb)
-                & (need_w + 2 * _shear_span(mhb) <= mwb))
-        menu_idx = torch.where(fits, mi, menu_idx)
-    hb_sel, wb_sel = _menu_table(tuple(menu), dev)[:, menu_idx]
-    out_h = torch.minimum(out_h, hb_sel)
-    hv = torch.minimum(hv, hb_sel)
-    out_w = torch.minimum(out_w, wb_sel)
-    wv = torch.minimum(wv, wb_sel)
-
-    def pick(real, filler):
-        return torch.where(live, real, filler).to(f32)
-
-    fields = {
-        'page': torch.arange(K, device=dev).expand(B, K).to(f32),
-        'y0': pick(y0, 4), 'x0': pick(x0, 4), 'h': pick(h, 4),
-        'w': pick(w, 4), 'ry0': pick(ry0, 0), 'rx0': pick(rx0, 0),
-        'out_h': pick(out_h, 4), 'out_w': pick(out_w, 4),
-        'py': pick(py, 0), 'px': pick(px, 0), 'hv': pick(hv, 4),
-        'wv': pick(wv, 4), 'cos': pick(ca, 1.0), 'sin': pick(sa, 0.0),
-        'off_y': pick(off_y, 0.0), 'off_x': pick(off_x, 0.0),
-    }
-    plan = torch.stack(
-        [fields[k] for k in PARAGRAPH_INT_FIELDS + PARAGRAPH_FLT_FIELDS]
-        + [pick(roots, -1)], dim=2)
-    return roots, plan, menu_idx, n_comp
+        menu_idx = torch.where((hv <= mhb) & (wv <= mwb), mi, menu_idx)
+    hb, wb = torch.as_tensor(np.asarray(menu, np.int64).T,
+                             device=dev)[:, menu_idx]
+    out_h, hv = torch.minimum(out_h, hb), torch.minimum(hv, hb)
+    out_w, wv = torch.minimum(out_w, wb), torch.minimum(wv, wb)
+    filler = {'h': 4, 'w': 4, 'out_h': 4, 'out_w': 4, 'hv': 4, 'wv': 4,
+              'label': -1}
+    fields = {'page': torch.arange(B, device=dev)[:, None].expand(B, K),
+              'label': torch.arange(K, device=dev).expand(B, K),
+              'y0': y0, 'x0': x0, 'h': h, 'w': w, 'angle': angle,
+              'ry0': ry0, 'rx0': rx0, 'out_h': out_h, 'out_w': out_w,
+              'py': py, 'px': px, 'hv': hv, 'wv': wv}
+    plan = torch.stack([torch.where(live, fields[k], filler.get(k, 0))
+                        for k in PARAGRAPH_FIELDS], dim=2)
+    return plan.to(torch.int32), menu_idx, n_comp
 
 
-def _page_labels(para_stack, syncs=None):
-    """Page CCL of (B, H, W) paragraph masks: grid_ccl_labels with the
-    row scans, capped at PAGE_CCL_MAX_ITERS, its sweep blocks counted as
-    syncs['page_ccl_block'].  Returns ((B, H, W) labels, converged)."""
-    lab, _, converged = grid_ccl_labels(
-        (para_stack > 0)[..., None], max_iters=PAGE_CCL_MAX_ITERS,
-        syncs=syncs, column_scan=True)
-    return lab[..., 0], converged
-
-
-def device_page_plans(para2d, out_hb, out_wb, k_max=32, syncs=None):
+def device_page_plans(para2d, out_hb, out_wb, k_max=32):
     """Paragraph-stage plans of ONE page on the device (the single-page
     chain's planner): every component cropped in the (out_hb, out_wb)
-    frame.  para2d (H, W) paragraph mask.  Returns (labels (H, W), roots
-    (k_max,), plan (k_max, 17) float32 rows of PARAGRAPH_INT_FIELDS and
-    PARAGRAPH_FLT_FIELDS, n_comp, ok: False iff the CCL hit its sweep cap
-    or the components overflow k_max, where the caller must plan on the
-    host).  'page' is the plan's slot: the chain crops each component
-    from the page masked to it."""
-    lab, converged = _page_labels(para2d[None], syncs=syncs)
-    roots, plan, _, n_comp = _page_component_plans(
-        lab, ((out_hb, out_wb),), k_max)
-    ok = (n_comp[0] <= k_max) & converged
-    return lab[0], roots[0], plan[0, :, :-1], n_comp[0], ok
+    frame.  para2d (H, W) paragraph mask.  Returns (labels (H, W),
+    plan (k_max, 15), n_comp, ok: False iff the components overflow
+    k_max, where the caller must plan on the host)."""
+    labels, stats, n_comp = page_labels(para2d[None], k_max)
+    plan, _, n_comp = _page_component_plans(
+        labels, stats, n_comp, ((out_hb, out_wb),), k_max)
+    return labels[0], plan[0], n_comp[0], n_comp[0] <= k_max
 
 
-def device_chunk_plans(para_stack, menu, k_max=48, syncs=None):
+def device_chunk_plans(para_stack, menu, k_max=48):
     """The device paragraph planner of a chunk.  para_stack (B, H, W)
     paragraph masks; menu: the crop-shape menu (line_shape_menu).
-    Returns (labels (B, H, W), plans (B, k_max, 18) with the root label
-    last, menu_idx (B, k_max), n_comp (B,), converged: a host bool).
-    Pages with more than k_max components, or all of them when the CCL
-    did not converge, are the host planner's."""
-    lab, converged = _page_labels(para_stack, syncs=syncs)
-    _, plans, menu_idx, n_comp = _page_component_plans(lab, menu, k_max)
-    return lab, plans, menu_idx, n_comp, converged
+    Returns (labels (B, H, W), plans (B, k_max, 15), menu_idx (B, k_max),
+    n_comp (B,)).  Pages with more than k_max components are the host
+    planner's."""
+    labels, stats, n_comp = page_labels(para_stack, k_max)
+    plans, menu_idx, n_comp = _page_component_plans(labels, stats, n_comp,
+                                                    menu, k_max)
+    return labels, plans, menu_idx, n_comp

@@ -1,44 +1,48 @@
 """Fused cascade tail (univer_ocr_tpu/models/fused_tail.py): line
 planning, line crops, the Char forward and the run-length decode, all on
-the device, after the paragraph stage's tables.
+the device, after the paragraph stage's crops and band masks.
 
-The tables mode pulls each paragraph launch's tables payload, plans the
-lines on the host and launches the line stage.  The fused tail keeps
-going on the device with the same pairing, orientation, ordering and
-merge as the host table planner (`_plan_lines_single`), the gather zoom
-of the line crops, the Char forward and a run-length decode
-(`decode_ids_device`).  The host pulls one small payload of collapsed
-glyph ids per launch and maps them to characters; the tables payload
-stays on the device unless a paragraph is flagged suspect (a merge
-suspect the grid CCL could not resolve, cross-axis lines, or an overflow
-of one of the caps below), and suspects re-plan through the host.
+The band components of every paragraph of a launch come from one
+`band_ccl` launch (band_tables.band_tables).  The tail pairs them into
+lines as the host cascade's interpreter.pair_lines pairs them
+(`_plan_lines_single`: each top takes the bottom nearest by centre, the
+first pair gives the orientation, both channels are sorted in reading
+order and zipped, each line the union box of its pair), crops and zooms
+the lines as extract_line does (device_cascade.zoomed_line_crops), runs
+the Char forward on them in uint8 steps and decodes the ids with the
+run-length rule (`decode_ids_device`).  The host pulls one small payload
+of collapsed glyph ids per launch and maps them to characters.  A
+paragraph that overflows one of the caps below is flagged.  The lines of
+a flagged paragraph are relaunched through the pipeline's line stage on
+the device from the tail's own line plans, which the host pulls only for
+a launch with a flagged paragraph; only a paragraph whose band table
+overflowed is planned on the host, from its band masks.
 
-Every step is batched over the launch's paragraphs.  The JAX package
-compacts by one-hot matrix products and decodes with a `lax.scan` over
-the columns; here each compaction is a `cumsum` and an index scatter
-(exact, as the one-hot products in HIGHEST are) and the decode is a
-handful of batched scans over the columns (`decode_ids_device`), which
-needs the look-alike relation to be an equivalence: the import checks
-that it is.
+The JAX package's fused tail plans from row statistics of sheared bands
+and merges the lines whose tops picked the same bottom; both lose lines
+that the host cascade reads, so the port pairs as the host does.
+
+Every step is batched over the launch's paragraphs.  Each compaction is a
+`cumsum` and an index scatter and the decode is a handful of batched
+scans over the columns (`decode_ids_device`), which needs the look-alike
+relation to be an equivalence: the import checks that it is.
 
 The caps are read at call time, so a test can patch them.
 """
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 
 from ..primitives import CHARS, SIMILAR_CHARS_PAIRS_LIST
-from .band_tables import pack_tables_payload, tables_state
-from .device_cascade import _thresholded_bands, zoomed_line_crops
+from .band_tables import band_tables
+from .device_cascade import to_u8_steps, zoomed_line_crops
 from .fastpath import char_forward_masked
 
-#: per-paragraph line-slot cap (a generated paragraph holds at most about
-#: 15 lines; more marks the paragraph suspect)
-MAX_LINES = 20
-#: per-launch pool of line crops; overflow marks the paragraphs whose
-#: lines did not fit suspect
+#: per-launch pool of line crops; overflow flags the paragraphs whose
+#: lines did not fit
 LINE_POOL = 64
 #: Char-stage width of the pooled crops: w * 32 / h tops out near 2048
 #: for the widest and shortest real lines
@@ -47,9 +51,14 @@ CHAR_POOL_WIDTH = 2048
 #: overflow truncates and flags the line's paragraph
 MAX_GLYPHS = 128
 
-#: field order of the (MAX_LINES, 12) line-plan rows
-PLAN_FIELDS = ('ratio_y', 'ratio_x', 'w_out', 'a_yy', 'a_yx', 'b_y',
-               'a_xy', 'a_xx', 'b_x', 'w_valid', 'out_h', 'out_w')
+#: field order of the (M, 10) line-plan rows: the line stage's LINE_FIELDS
+#: but the paragraph index
+PLAN_FIELDS = ('lh', 'lw', 'w_out', 'a_yy', 'a_yx', 'b_y', 'a_xy', 'a_xx',
+               'b_x', 'w_valid')
+#: the fused payload's flags of a paragraph, bit by bit: its band table
+#: overflowed, its lines the launch's LINE_POOL, a line's width
+#: CHAR_POOL_WIDTH, a line's glyphs MAX_GLYPHS
+FLAG_BITS = ('table_of', 'pool_of', 'trunc_of', 'glyph_of')
 
 #: rot90_inverse_affine coefficients by rotation // 90: (a_yy, a_yx,
 #: b_y_h, b_y_w, b_y_c, a_xy, a_xx, b_x_h, b_x_w, b_x_c, swap), with
@@ -59,7 +68,7 @@ _ROT_TABLE = np.array([
     [0, 1, 0, 0, 0, -1, 0, 0, 1, -1, 1],        # 90:  ys=xr, xs=w-1-yr
     [-1, 0, 1, 0, -1, 0, -1, 0, 1, -1, 0],      # 180: ys=h-1-yr, xs=w-1-xr
     [0, -1, 1, 0, -1, 1, 0, 0, 0, 0, 1],        # 270: ys=h-1-xr, xs=yr
-], np.float32)
+], np.int64)
 
 
 def _similar_table(chars=CHARS, pairs=SIMILAR_CHARS_PAIRS_LIST):
@@ -169,7 +178,7 @@ def glyphs_to_text(glyphs, n_glyphs):
 
 
 # ---------------------------------------------------------------------------
-# Device line planning (OCRPipeline._plan_lines_from_tables, batched)
+# Device line planning (interpreter.pair_lines, batched)
 # ---------------------------------------------------------------------------
 
 
@@ -179,110 +188,12 @@ def _take(t, idx):
     return torch.gather(t, 1, idx.expand(idx.shape[:2] + t.shape[2:]))
 
 
-def _axis_counts(nb, axis):
-    """nb (B, 2, 2) blob counts -> (B, 2) counts of `axis` (B,)."""
-    B = nb.shape[0]
-    idx = axis.to(torch.int64).reshape(B, 1, 1).expand(B, 1, 2)
-    return torch.gather(nb.to(torch.int64), 1, idx)[:, 0]
-
-
-def _plan_lines_single(tbl, nb, axis, char_h=32, char_min_w=8):
-    """Line plans of each paragraph of a launch from its blob tables.
-
-    tbl (B, 2, M, 7, 2) float32, nb (B, 2, 2), axis (B,).  Returns
-    (plans (B, MAX_LINES, 12) float32 in PLAN_FIELDS order, n_lines (B,),
-    overflow (B,) bool: more lines than MAX_LINES).  The pairing,
-    orientation, ordering and merge of OCRPipeline._plan_lines_from_tables
-    (the JAX package's per-paragraph function, batched)."""
-    B, _, M = tbl.shape[:3]
-    L = MAX_LINES
-    dev = tbl.device
-    big = 1e9
-    t = torch.where((axis == 0).reshape(B, 1, 1, 1), tbl[:, 0], tbl[:, 1])
-    counts = torch.clamp(_axis_counts(nb, axis), max=M)
-    n_top, n_bot = counts[:, 0:1], counts[:, 1:2]
-    sl = torch.arange(M, device=dev)
-    tv = sl[None, :] < n_top
-    bv = sl[None, :] < n_bot
-    top, bot = t[..., 0], t[..., 1]                              # (B, M, 7)
-    cm_t, cm_b = top[:, :, 5:7], bot[:, :, 5:7]
-
-    diff = cm_t[:, :, None, :] - cm_b[:, None, :, :]
-    d = torch.sqrt((diff * diff).sum(dim=3))
-    d = torch.where(bv[:, None, :], d, big)
-    pick = torch.argmin(d, dim=2)                                 # (B, M)
-    bot_p = _take(bot, pick)
-    cm_bp = bot_p[:, :, 5:7]
-
-    delta = cm_t[:, 0] - cm_bp[:, 0]
-    dy, dx = delta[:, 0], delta[:, 1]
-    rot_i = torch.where(
-        dy.abs() > dx.abs(), torch.where(dy > 0, 2, 0),
-        torch.where(dx > 0, 1, torch.where(dx < 0, 3, 0)))       # rot // 90
-    ax_idx = torch.where((rot_i == 0) | (rot_i == 2), 0, 1)
-    # the reading order of _ORIENTATION_KEYS: None (cy, +1), 180 (cy, -1),
-    # 270 (cx, +1), 90 (cx, -1)
-    sign = torch.where((rot_i == 0) | (rot_i == 3), 1.0, -1.0)[:, None]
-    ax3 = ax_idx.reshape(B, 1, 1).expand(B, M, 1)
-    key_t = torch.where(tv, sign * torch.gather(cm_t, 2, ax3)[..., 0], big)
-    key_b = torch.where(tv, sign * torch.gather(cm_bp, 2, ax3)[..., 0], big)
-    order_t = torch.argsort(key_t, dim=1, stable=True)
-    order_b = torch.argsort(key_b, dim=1, stable=True)
-    top_o = _take(top, order_t)
-    bot_o = _take(bot_p, order_b)
-    picks_o = torch.gather(pick, 1, order_t)
-
-    y0 = torch.minimum(top_o[:, :, 1], bot_o[:, :, 1])
-    y1 = torch.maximum(top_o[:, :, 2], bot_o[:, :, 2])
-    x0 = torch.minimum(top_o[:, :, 3], bot_o[:, :, 3])
-    x1 = torch.maximum(top_o[:, :, 4], bot_o[:, :, 4])
-
-    # rows whose tops picked the same bottom merge: the first keeps the
-    # line slot and takes the union of the group
-    valid_k = torch.gather(tv, 1, order_t)
-    same = ((picks_o[:, None, :] == picks_o[:, :, None])
-            & valid_k[:, None, :])                                # (B, M, M)
-    gy0 = torch.where(same, y0[:, None, :], big).amin(dim=2)
-    gy1 = torch.where(same, y1[:, None, :], -big).amax(dim=2)
-    gx0 = torch.where(same, x0[:, None, :], big).amin(dim=2)
-    gx1 = torch.where(same, x1[:, None, :], -big).amax(dim=2)
-    earlier = same & (sl[None, None, :] < sl[None, :, None])
-    line_mask = (~earlier.any(dim=2) & valid_k & (n_top > 0)
-                 & (n_bot > 0))
-
-    h_l = torch.floor(gy1) - torch.floor(gy0)
-    w_l = torch.floor(gx1) - torch.floor(gx0)
-    coef = _device_tables(dev)[1][rot_i][:, None, :]              # (B, 1, 11)
-    swap = coef[..., 10] > 0
-    lh = torch.clamp(torch.where(swap, w_l, h_l), min=1.0)
-    lw = torch.clamp(torch.where(swap, h_l, w_l), min=1.0)
-    zf = char_h / lh
-    w_out = torch.round(lw * zf)
-    # the reciprocal product XLA makes of a division by a constant, which
-    # the JAX package's compiled program runs
-    ratio_y = (lh - 1.0) * (1.0 / (char_h - 1.0)) if char_h > 1 else lh * 0.0
-    ratio_x = torch.where(w_out > 1, (lw - 1.0) / (w_out - 1.0), 0.0)
-    b_y = (coef[..., 2] * h_l + coef[..., 3] * w_l + coef[..., 4]
-           + torch.floor(gy0))
-    b_x = (coef[..., 7] * h_l + coef[..., 8] * w_l + coef[..., 9]
-           + torch.floor(gx0))
-    w_valid = torch.clamp(w_out, min=float(char_min_w))
-
-    def const(i):
-        return coef[..., i].expand(B, M)
-
-    plans = torch.stack([
-        ratio_y, ratio_x, w_out, const(0), const(1), b_y, const(5),
-        const(6), b_x, w_valid, torch.full_like(w_out, float(char_h)),
-        w_out], dim=2)                                            # (B, M, 12)
-
-    # compact the line slots to MAX_LINES, in order
-    idx = torch.cumsum(line_mask, dim=1) - 1
-    n_lines = line_mask.sum(dim=1)
-    out = plans.new_zeros((B, L + 1, len(PLAN_FIELDS)))
-    out.scatter_(1, _slot(idx, line_mask, L)[..., None].expand(B, M, 12),
-                 plans)
-    return out[:, :L], torch.clamp(n_lines, max=L), n_lines > L
+def _centres(rows):
+    """(B, M, 7) table rows -> (B, M, 2) float64 (y, x) centres: the
+    integer sums over the count, as the host's."""
+    cnt = torch.clamp(rows[..., 0], min=1).to(torch.float64)
+    return torch.stack([rows[..., 1].to(torch.float64) / cnt,
+                        rows[..., 2].to(torch.float64) / cnt], dim=-1)
 
 
 def _slot(idx, keep, n):
@@ -290,75 +201,112 @@ def _slot(idx, keep, n):
     return torch.where(keep & (idx < n), idx, n)
 
 
-def _cross_axis_single(tbl, nb, axis):
-    """OCRPipeline._cross_axis_escalation of each paragraph of a launch:
-    True where the axis not chosen resolves more blobs than the chosen
-    one and some gap between them exceeds 0.8 of the smaller
-    neighbour's extent across it.  tbl (B, 2, M, 7, 2), nb (B, 2, 2),
-    axis (B,) -> (B,) bool."""
-    B, _, M = tbl.shape[:3]
-    dev = tbl.device
-    big = 1e9
-    other = 1 - axis.to(torch.int64)
-    t_all = torch.where((other == 0).reshape(B, 1, 1, 1), tbl[:, 0],
-                        tbl[:, 1])                                # (B, M, 7, 2)
-    # the run-interval fields of `other`, and the cross-extent fields
-    lo = torch.where(other == 0, 1, 3).reshape(B, 1, 1).expand(B, M, 1)
-    clo = torch.where(other == 0, 3, 1).reshape(B, 1, 1).expand(B, M, 1)
-    n_o = torch.clamp(_axis_counts(nb, other), max=M)
-    n_c = torch.clamp(_axis_counts(nb, axis), max=M)
+def _plan_lines_single(stats, n_comp, char_h=32, char_min_w=8):
+    """Line plans of each paragraph of a launch from its band tables.
+
+    stats (B, 2, M, 7) and n_comp (B, 2) of band_tables.  Returns (plans
+    (B, M, 10) int64 in PLAN_FIELDS order, zero past each paragraph's
+    lines, n_lines (B,)): a paragraph has a line per top component, so
+    its lines fit the M rows.  interpreter.pair_lines on
+    the components, in float64 as the host: each top takes the bottom
+    nearest by centre (the first on ties), the first pair's displacement
+    gives the rotation, the tops and their bottoms are sorted in reading
+    order (stable) and zipped, each line the union box of its pair; then
+    extract_line's upright extent and zoomed width."""
+    B, _, M, _ = stats.shape
+    dev = stats.device
+    inf = float('inf')
+    st = stats.to(torch.int64)
+    top, bot = st[:, 0], st[:, 1]                                 # (B, M, 7)
+    n = torch.clamp(n_comp.to(torch.int64), max=M)
+    n_top, n_bot = n[:, 0:1], n[:, 1:2]
     sl = torch.arange(M, device=dev)
-    fires = []
-    for ch in range(tbl.shape[4]):
-        t = t_all[..., ch]                                        # (B, M, 7)
-        v = sl[None, :] < n_o[:, ch:ch + 1]
-        starts = torch.where(v, torch.gather(t, 2, lo)[..., 0], big)
-        order = torch.argsort(starts, dim=1, stable=True)
-        ts = _take(t, order)
-        vs = torch.gather(v, 1, order)
-        ivs0 = torch.gather(ts, 2, lo)[..., 0]
-        ivs1 = torch.gather(ts, 2, lo + 1)[..., 0]
-        gaps = ivs0[:, 1:] - ivs1[:, :-1]
-        heights = (torch.gather(ts, 2, clo + 1)
-                   - torch.gather(ts, 2, clo))[..., 0]
-        hmin = torch.minimum(heights[:, 1:], heights[:, :-1])
-        fire = (vs[:, 1:] & vs[:, :-1] & (gaps > 0.8 * hmin)).any(dim=1)
-        fires.append((n_o[:, ch] > torch.clamp(n_c[:, ch], min=1)) & fire)
-    return fires[0] | fires[1]
+    tv, bv = sl[None, :] < n_top, sl[None, :] < n_bot
+    cm_t, cm_b = _centres(top), _centres(bot)
+
+    diff = cm_t[:, :, None, :] - cm_b[:, None, :, :]              # (B,M,M,2)
+    sq = diff * diff
+    d = torch.where(bv[:, None, :], torch.sqrt(sq[..., 0] + sq[..., 1]), inf)
+    pick = torch.argmin(d, dim=2)                                 # (B, M)
+    bot_p, cm_bp = _take(bot, pick), _take(cm_b, pick)
+
+    delta = cm_t[:, 0] - cm_bp[:, 0]
+    dy, dx = delta[:, 0], delta[:, 1]
+    rot_i = torch.where(
+        dy.abs() > dx.abs(), torch.where(dy > 0, 2, 0),
+        torch.where(dx > 0, 1, torch.where(dx < 0, 3, 0)))       # rot // 90
+    # the reading order of interpreter._ORIENTATION_KEYS: None (y, +1),
+    # 180 (y, -1), 270 (x, +1), 90 (x, -1)
+    ax = torch.where((rot_i == 0) | (rot_i == 2), 0, 1)
+    ax = ax.reshape(B, 1, 1).expand(B, M, 1)
+    sign = torch.where((rot_i == 0) | (rot_i == 3), 1.0, -1.0)[:, None]
+    key_t = torch.where(tv, sign * torch.gather(cm_t, 2, ax)[..., 0], inf)
+    key_b = torch.where(tv, sign * torch.gather(cm_bp, 2, ax)[..., 0], inf)
+    top_o = _take(top, torch.argsort(key_t, dim=1, stable=True))
+    bot_o = _take(bot_p, torch.argsort(key_b, dim=1, stable=True))
+    y0 = torch.minimum(top_o[..., 3], bot_o[..., 3])
+    y1 = torch.maximum(top_o[..., 4], bot_o[..., 4])
+    x0 = torch.minimum(top_o[..., 5], bot_o[..., 5])
+    x1 = torch.maximum(top_o[..., 6], bot_o[..., 6])
+    line_mask = tv & (n_top > 0) & (n_bot > 0)
+
+    h_l, w_l = y1 - y0, x1 - x0
+    coef = _device_tables(dev)[1][rot_i][:, None, :]              # (B, 1, 11)
+    swap = coef[..., 10] > 0
+    lh = torch.clamp(torch.where(swap, w_l, h_l), min=1)
+    lw = torch.clamp(torch.where(swap, h_l, w_l), min=1)
+    w_out = torch.round(lw.to(torch.float64)
+                        * (char_h / lh.to(torch.float64))).to(torch.int64)
+    b_y = coef[..., 2] * h_l + coef[..., 3] * w_l + coef[..., 4] + y0
+    b_x = coef[..., 7] * h_l + coef[..., 8] * w_l + coef[..., 9] + x0
+
+    def const(i):
+        return coef[..., i].expand(B, M)
+
+    plans = torch.stack([lh, lw, w_out, const(0), const(1), b_y, const(5),
+                         const(6), b_x, torch.clamp(w_out, min=char_min_w)],
+                        dim=2)                                    # (B, M, 10)
+
+    # the first n_top slots are the lines, in order
+    return (torch.where(line_mask[..., None], plans, 0),
+            line_mask.sum(dim=1))
 
 
 # ---------------------------------------------------------------------------
-# The fused tail: paragraph bands -> line crops -> Char -> glyphs
+# The fused tail: band masks -> components -> line crops -> Char -> glyphs
 # ---------------------------------------------------------------------------
 
 
-def fused_paragraph_tail(params, crops, h_valid, w_valid, precision=None,
-                         min_run=4, char_head='xla', syncs=None):
-    """Everything after the paragraph crop of one launch.
+def fused_paragraph_tail(params, crops, bands, h_valid, w_valid,
+                         precision=None, min_run=4, char_head='xla',
+                         track=None):
+    """Everything after the paragraph stage of one launch.
 
-    crops (B, HB, WB, 1) float32 paragraph crops; h_valid, w_valid (B,).
-    `char_head` as char_forward_masked's; `syncs` counts tables_state's
-    host syncs.  Returns (the sheared crops, the small payload (NBYTES,)
-    uint8 of glyph ids and line bookkeeping, unpacked by
-    unpack_fused_payload, and the tables payload (B, NB) uint8 of
-    pack_tables_payload, with every flagged paragraph suspect).
+    crops (B, HB, WB, 1) float32 paragraph crops, bands (B, HB, WB, 2)
+    bool their band masks; h_valid, w_valid (B,).  `char_head` as
+    char_forward_masked's; `track(name)`, when given, opens the span
+    'band_components' around the labelling launch.  Returns (the small
+    payload (NBYTES,) uint8 of glyph ids, line bookkeeping, each
+    paragraph's FLAG_BITS and its band component count, unpacked by
+    unpack_fused_payload; the line plans (B, M, 10) of _plan_lines_single,
+    left on the device).
 
-    The caps never lose text silently: a paragraph whose lines overflow
-    MAX_LINES, the launch's LINE_POOL, CHAR_POOL_WIDTH or MAX_GLYPHS is
-    flagged, and flagged paragraphs re-plan on the host from the tables
-    payload (OCRPipeline._finish_dispatch)."""
+    The caps never lose text silently: a paragraph whose band components
+    overflow the table, or whose lines overflow the launch's LINE_POOL,
+    CHAR_POOL_WIDTH or MAX_GLYPHS, is flagged.  The pipeline relaunches a
+    flagged paragraph's planned lines through its line stage, and plans a
+    paragraph whose table overflowed on the host from its band masks
+    (OCRPipeline._plan_fused_launch)."""
     B = crops.shape[0]
     dev = crops.device
-    bands = _thresholded_bands(params, crops, h_valid, w_valid,
-                               precision=precision)
-    (crops, tbl, n_blobs, shears, axis, suspect,
-     packed_prof) = tables_state(bands, crops, syncs=syncs)
+    span = track('band_components') if track else contextlib.nullcontext()
+    with span:
+        stats, n_comp = band_tables(bands, h_valid, w_valid)
+    plans, n_lines = _plan_lines_single(stats, n_comp)
+    over_tbl = n_comp.amax(dim=1) > stats.shape[2]
 
-    plans, n_lines, over_lines = _plan_lines_single(tbl, n_blobs, axis)
-    over_tbl = n_blobs.amax(dim=(1, 2)) > tbl.shape[2]
-
-    # the launch's line pool: the (B, MAX_LINES) slots compacted in order
-    L, P = MAX_LINES, LINE_POOL
+    # the launch's line pool: the (B, M) slots compacted in order
+    L, P = plans.shape[1], LINE_POOL
     line_valid = (torch.arange(L, device=dev)[None, :]
                   < n_lines[:, None]).reshape(-1)
     pos = torch.cumsum(line_valid, dim=0) - 1                     # (B*L,)
@@ -382,88 +330,84 @@ def fused_paragraph_tail(params, crops, h_valid, w_valid, precision=None,
 
     w_out = fld('w_out')
     over_trunc = per_paragraph(w_out > CHAR_POOL_WIDTH)
-    w_out_c = torch.clamp(w_out, max=CHAR_POOL_WIDTH).to(torch.int64)
-    w_val = torch.clamp(fld('w_valid'), max=CHAR_POOL_WIDTH).to(torch.int64)
-
-    def ints(name):
-        return fld(name).to(torch.int64)
-
+    w_val = torch.clamp(fld('w_valid'), max=CHAR_POOL_WIDTH)
     lines = zoomed_line_crops(
-        crops, para_idx, fld('ratio_y'), fld('ratio_x'), w_out_c,
-        ints('a_yy'), ints('a_yx'), ints('b_y'), ints('a_xy'),
-        ints('a_xx'), ints('b_x'), 32, CHAR_POOL_WIDTH)
-    logits = char_forward_masked(params, lines, w_val, precision=precision,
-                                 head=char_head)
+        crops, para_idx, fld('lh'), fld('lw'),
+        torch.clamp(w_out, max=CHAR_POOL_WIDTH), fld('a_yy'), fld('a_yx'),
+        fld('b_y'), fld('a_xy'), fld('a_xx'), fld('b_x'), 32,
+        CHAR_POOL_WIDTH)
+    logits = char_forward_masked(params, to_u8_steps(lines), w_val,
+                                 precision=precision, head=char_head)
     ids = logits.argmax(dim=-1)
     cols = torch.arange(logits.shape[1], device=dev)[None, :]
     valid = (cols < w_val[:, None]) & pool_used[:, None]
     glyphs, n_glyphs, over_gl = decode_ids_device(ids, valid, min_run)
     over_glyph = per_paragraph(over_gl)
 
-    cross = _cross_axis_single(tbl, n_blobs, axis)
-    # the suspect byte is a bitmask of the reasons (nonzero: escalate);
-    # the host counts each bit in escalation_stats
-    bits = (suspect, cross, over_tbl, over_lines, over_pool, over_trunc,
-            over_glyph)
-    suspect_mask = sum(b.to(torch.uint8) << i for i, b in enumerate(bits))
-    small = torch.cat([
+    # the flag byte is a bitmask of FLAG_BITS (nonzero: the pipeline
+    # reads the paragraph's lines otherwise); the host counts each bit in
+    # escalation_stats
+    bits = (over_tbl, over_pool, over_trunc, over_glyph)
+    flags = sum(b.to(torch.uint8) << i for i, b in enumerate(bits))
+    comps = torch.clamp(n_comp.sum(dim=1), max=65535).to(torch.int64)
+    return torch.cat([
         torch.clamp(glyphs, 0, 255).to(torch.uint8).reshape(-1),
         n_glyphs.to(torch.uint8),
         torch.where(pool_used, para_idx, 255).to(torch.uint8),
         n_lines.to(torch.uint8),
-        suspect_mask.to(torch.uint8),
-    ])
-    tables_payload = pack_tables_payload(tbl, n_blobs, shears, axis,
-                                         suspect_mask > 0, packed_prof)
-    return crops, small, tables_payload
+        flags.to(torch.uint8),
+        (comps & 255).to(torch.uint8),
+        (comps >> 8).to(torch.uint8),
+    ]), plans
 
 
 def fused_payload_nbytes(launch_batch):
     """Length of fused_paragraph_tail's small payload for a launch of
     `launch_batch` paragraph slots."""
-    return LINE_POOL * MAX_GLYPHS + 2 * LINE_POOL + 2 * launch_batch
+    return LINE_POOL * MAX_GLYPHS + 2 * LINE_POOL + 4 * launch_batch
 
 
 def unpack_fused_payload(buf, n_paragraphs, n_shards=1):
     """Host inverse of fused_paragraph_tail's small payload.
 
-    Returns (texts: [n_paragraphs][lines in reading order] str, suspect
-    (n_paragraphs,) uint8 bitmask: nonzero means escalate; bits
-    merge_suspect, cross_axis, table overflow, line-slot overflow, pool
-    overflow, width truncation, glyph overflow).  The launch batch comes
-    from the buffer's length.
+    Returns (texts: [n_paragraphs][lines in reading order] str, flags
+    (n_paragraphs,) uint8 bitmask of FLAG_BITS, nonzero where the host
+    plans the paragraph, band components (n_paragraphs,) int64).  The
+    launch batch comes from the buffer's length.
 
     Under a mesh each of `n_shards` data shards runs the tail on its share
     of the launch batch with its own line pool, and the payload is the
     shards' segments end to end: each segment is unpacked with its share
-    (its slot count read from its layout) and the texts and suspects are
-    stitched back in batch order."""
+    (its slot count read from its layout) and the results are stitched
+    back in batch order."""
     buf = np.asarray(buf)
+    P, G = LINE_POOL, MAX_GLYPHS
     if n_shards > 1:
         segments = np.split(buf, n_shards)
-        b_local = (segments[0].shape[0] - LINE_POOL * MAX_GLYPHS
-                   - 2 * LINE_POOL) // 2
-        texts, suspects = [], [np.zeros(0, np.uint8)]
+        b_local = (segments[0].shape[0] - P * G - 2 * P) // 4
+        texts = []
+        flags, comps = [np.zeros(0, np.uint8)], [np.zeros(0, np.int64)]
         for s, segment in enumerate(segments):
             n_s = min(max(n_paragraphs - s * b_local, 0), b_local)
             if n_s == 0:
                 break
-            t, su = unpack_fused_payload(segment, n_s)
+            t, f, c = unpack_fused_payload(segment, n_s)
             texts.extend(t)
-            suspects.append(su)
-        return texts, np.concatenate(suspects)
-    P, G = LINE_POOL, MAX_GLYPHS
-    # the device wrote n_lines and suspect for its whole batch, fillers
-    # included; the real paragraphs come first
-    b_dev = (buf.shape[0] - P * G - 2 * P) // 2
-    o = 0
-    glyphs = buf[o:o + P * G].reshape(P, G)
-    o += P * G
+            flags.append(f)
+            comps.append(c)
+        return texts, np.concatenate(flags), np.concatenate(comps)
+    # the device wrote n_lines, flags and counts for its whole batch,
+    # fillers included; the real paragraphs come first
+    b_dev = (buf.shape[0] - P * G - 2 * P) // 4
+    glyphs = buf[:P * G].reshape(P, G)
+    o = P * G
     n_glyphs = buf[o:o + P]
-    o += P
-    para_of = buf[o:o + P]
-    o += P + b_dev                                 # past n_lines
-    suspect = buf[o:o + n_paragraphs]
+    para_of = buf[o + P:o + 2 * P]
+    o += 2 * P + b_dev                             # past n_lines
+    flags = buf[o:o + n_paragraphs]
+    o += b_dev
+    comps = (buf[o:o + n_paragraphs].astype(np.int64)
+             + 256 * buf[o + b_dev:o + b_dev + n_paragraphs].astype(np.int64))
     # pool slots were assigned in (paragraph, line) order, so each
     # paragraph's lines come in reading order
     texts = [[] for _ in range(n_paragraphs)]
@@ -471,4 +415,4 @@ def unpack_fused_payload(buf, n_paragraphs, n_shards=1):
         b = int(para_of[p])
         if b < n_paragraphs:
             texts[b].append(glyphs_to_text(glyphs[p], int(n_glyphs[p])))
-    return texts, suspect
+    return texts, flags, comps
