@@ -39,11 +39,12 @@ from univer_ocr_tpu_torch.weights import (DEFAULT_CHECKPOINT, load_checkpoint,
 
 from test_torch_fixture import N_PAGES, PAGE_SHAPE, load_fixture
 
-#: the device cascade's stage timers, as the JAX pipeline names them
+#: the device cascade's stage timers, as the JAX pipeline names them, and
+#: its paragraph launches (eager on the CPU: no 'graph_replays')
 DEVICE_STAGES = {'pull_para_bits', 'host_paragraph_plans',
                  'dispatch_paragraph_stage', 'pull_band_masks',
                  'host_line_plans', 'dispatch_line_stage', 'pull_char_ids',
-                 'decode_text', 'host_sync'}
+                 'decode_text', 'host_sync', 'stage_launches'}
 #: the tables mode's: the tables pull replaces the band-mask pull, and the
 #: labelling launches are timed and their components counted
 TABLES_STAGES = (DEVICE_STAGES - {'pull_band_masks'}
@@ -146,6 +147,7 @@ def test_tables_mode_stage_timers_and_counters(tables_run):
     launches = sum(tag == 'tables' for tag, *_ in timeline)
     assert launches > 0 and syncs['tables'] == launches
     assert summary['band_components']['count'] == launches
+    assert summary['stage_launches']['count'] == launches
     assert summary['band_components_labelled']['count'] == launches
     lines = sum(len(lines) for page in texts for lines in page)
     assert timers.totals['band_components_labelled'] >= 2 * lines

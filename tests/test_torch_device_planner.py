@@ -265,12 +265,16 @@ def test_default_pipeline_matches_jax_fused_text(fused_run):
 def test_default_pipeline_timers_and_counters(fused_run):
     """The planned dispatch's stages and pulls: one plan matrix per chunk,
     one glyph pull per wave, no paragraph-mask pull and no line stage on
-    these pages; its syncs only the counted kinds."""
+    these pages; its syncs only the counted kinds.  On the CPU every
+    paragraph launch and chunk planner call runs eagerly: no graph
+    replays."""
     texts, summary, timeline, stats, syncs = fused_run
     assert set(summary) == {'pull_plan_matrix', 'host_paragraph_plans',
                             'dispatch_paragraph_stage', 'pull_fused_glyphs',
                             'band_components', 'band_components_labelled',
-                            'host_sync'}
+                            'host_sync', 'stage_launches'}
+    assert summary['stage_launches']['count'] == (
+        summary['band_components']['count'] + N_PAGES // 2)
     assert summary['pull_plan_matrix']['count'] == N_PAGES // 2
     tags = Counter(tag for tag, *_ in timeline)
     assert set(tags) == {'plan_matrix', 'fused_glyphs'}

@@ -93,6 +93,15 @@ def _rotation_table(device):
 
 
 @functools.lru_cache(maxsize=None)
+def _menu_table(menu, device):
+    """(2, len(menu)) int64 heights and widths of a crop-shape menu (a
+    tuple of (hb, wb)) on `device`, copied there once: a copy from
+    pageable memory waits for the stream, which a CUDA graph's capture may
+    not do."""
+    return torch.as_tensor(np.asarray(menu, np.int64).T, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _angle_table(device):
     """(cos, sin) of each whole degree in [0, 180], as find_rotation_angle
     computes them (np.cos of np.deg2rad), float64 on `device`."""
@@ -461,8 +470,7 @@ def _page_component_plans(labels, stats, n_comp, menu, k_max):
     for mi in range(len(menu) - 1, -1, -1):
         mhb, mwb = menu[mi]
         menu_idx = torch.where((hv <= mhb) & (wv <= mwb), mi, menu_idx)
-    hb, wb = torch.as_tensor(np.asarray(menu, np.int64).T,
-                             device=dev)[:, menu_idx]
+    hb, wb = _menu_table(tuple(map(tuple, menu)), dev)[:, menu_idx]
     out_h, hv = torch.minimum(out_h, hb), torch.minimum(hv, hb)
     out_w, wv = torch.minimum(out_w, wb), torch.minimum(wv, wb)
     filler = {'h': 4, 'w': 4, 'out_h': 4, 'out_w': 4, 'hv': 4, 'wv': 4,

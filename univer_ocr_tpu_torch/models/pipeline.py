@@ -50,7 +50,10 @@ the tail's own line plans, pulled only then
 
 A dispatcher thread runs chunk i+1's dispatch while the caller's thread
 collects chunk i, and the paragraph launches of a chunk are handled in
-parallel on the pool.
+parallel on the pool.  On the card without a mesh, every paragraph
+launch and chunk planner call replays a CUDA graph, captured at the first
+call of its shapes (models/launch_graphs.py): dispatched op by op, their
+~1,300 ops a launch kept the card waiting on the dispatcher.
 
 With a `mesh` (parallel/mesh.py), as in JAX, every launch batch of the
 front and of the Line and Char stages splits over the mesh's 'data'
@@ -120,6 +123,7 @@ from .device_cascade import (LINE_FIELDS, PARAGRAPH_FIELDS,
 from .fastpath import (char_forward_masked, char_head_weights,
                        line_forward_masked, monochrome_forward,
                        monochrome_weights)
+from .launch_graphs import LaunchGraphs
 
 #: seed of the generator behind `OCRPipeline(weights=None)`
 RANDOM_INIT_SEED = 0
@@ -197,11 +201,14 @@ class OCRPipeline:
     cascade also each host CV step on the pool threads, with the threads'
     CPU seconds in it (`host_cv_thread_cpu`), and the waits for the Line
     and Char results (`line_pull`, `char_pull`); in the device cascade
-    the labelling launches ('band_components', with the components they
-    labelled counted as 'band_components_labelled') and every blocking
-    pull
-    ('host_sync', counted as `host_syncs` counts it), and `timeline`
-    then records every device-to-host pull as (tag, start, end, bytes).
+    the labelling launches ('band_components', a span of the host's
+    launch time, which a graph replay does not open; the components they
+    labelled counted as 'band_components_labelled'), every blocking pull
+    ('host_sync', counted as `host_syncs` counts it), and the paragraph
+    launches and chunk planner calls ('stage_launches'), those a CUDA
+    graph's replay served ('graph_replays') and the graphs captured
+    ('graph_captures'); `timeline` then records every device-to-host pull
+    as (tag, start, end, bytes).
     Close the pipeline (`close()` or `with`) to shut its thread pools
     down.
     """
@@ -277,6 +284,11 @@ class OCRPipeline:
         #: 'plan_matrix', 'para_bits', 'fused_glyphs', 'line_plans',
         #: 'bands', 'tables', 'char_ids', 'chain_plan'
         self.host_syncs = Counter()
+        #: the CUDA graphs of the device cascade's paragraph launches and
+        #: chunk planner, on the card without a mesh (launch_graphs.py)
+        self._graphs = (LaunchGraphs(self.device)
+                        if device_cascade and self.device.type == 'cuda'
+                        and mesh is None else None)
         if mesh is not None:
             self._shard_stages(mesh)
 
@@ -320,6 +332,7 @@ class OCRPipeline:
     def close(self):
         self._pool.shutdown(wait=True)
         self._xfer.shutdown(wait=True)
+        self._graphs = None
 
     def __enter__(self):
         return self
@@ -439,6 +452,27 @@ class OCRPipeline:
         return ids, valid
 
 
+    def _stage_launch(self, name, fn, args, statics=()):
+        """fn(*args, *statics), replayed from its CUDA graph where the
+        pipeline has them (`args` staged into the graph's buffers), else
+        run as it stands.  With timers, counts the call in
+        'stage_launches' and, where a replay served it, in 'graph_replays'
+        (and its capture in 'graph_captures')."""
+        timers = self.timers
+        if timers is not None:
+            timers.add('stage_launches', 1)
+        if self._graphs is None:
+            return fn(*args, *statics)
+        out, captured = self._graphs.launch(
+            name, fn, args, statics, mode=(self.fused_tail, self.band_tables,
+                                           self.precision,
+                                           self.collapse_runs))
+        if timers is not None:
+            timers.add('graph_replays', 1)
+            if captured:
+                timers.add('graph_captures', 1)
+        return out
+
     def paragraph_launch(self, mono, labels, plan, hb, wb):
         """One paragraph launch (device_cascade.paragraph_stage): mono
         (N, H, W) map in uint8 steps, labels (N, H, W) the chunk's
@@ -446,7 +480,13 @@ class OCRPipeline:
         Returns (crops, band masks as uint8, extra): extra is None in the
         parity mode, the packed band tables in the tables mode
         (band_tables.pack_tables) and the fused tail's (glyph payload,
-        line plans) with it."""
+        line plans) with it.  On the card without a mesh, a replay of the
+        graph of its stack shape, batch, menu entry and mode
+        (`_stage_launch`)."""
+        return self._stage_launch('paragraph_launch', self._paragraph_launch,
+                                  (mono, labels, plan), (hb, wb))
+
+    def _paragraph_launch(self, mono, labels, plan, hb, wb):
         crops, bands = paragraph_stage(self.params, mono, labels, plan, hb,
                                        wb, precision=self.precision)
         hv, wv = plan[:, PARAGRAPH_FIELDS.index('hv')], plan[
@@ -465,7 +505,12 @@ class OCRPipeline:
     def chunk_planner(self, para_stack):
         """device_chunk_plans at CHUNK_PLAN_K, its results packed into ONE
         int32 vector [plans (B, K, 15) | menu_idx (B, K) | n_comp (B)].
-        Returns (labels, packed)."""
+        Returns (labels, packed).  On the card without a mesh, a replay
+        of the graph of its stack shape (`_stage_launch`)."""
+        return self._stage_launch('chunk_planner', self._chunk_planner,
+                                  (para_stack,))
+
+    def _chunk_planner(self, para_stack):
         labels, plans, menu_idx, n_comp = device_chunk_plans(
             para_stack, tuple(self.line_shape_menu), k_max=self.CHUNK_PLAN_K)
         packed = torch.cat([plans.reshape(-1),
@@ -740,6 +785,10 @@ class OCRPipeline:
         """Launch the paragraph stage for all plans, grouped by shape
         menu.  Returns [(plan indices, crops, band masks, extra)], all on
         the device (paragraph_launch's)."""
+        if self._graphs is not None:
+            # the chunk's stacks once, where every launch's graph reads them
+            stacks = [self._graphs.stage('paragraph_launch', i, t)
+                      for i, t in enumerate(stacks)]
         mono_dev, labels_dev = stacks
         groups = {}
         for i, plan in enumerate(plans):
@@ -765,8 +814,10 @@ class OCRPipeline:
                         mat[:, ci] = -1
                 for bi, i in enumerate(sel):
                     mat[bi] = [plans[i][k] for k in PARAGRAPH_FIELDS]
-                out = self.paragraph_launch(mono_dev, labels_dev,
-                                            self._tensor(mat), hb, wb)
+                plan = (self._tensor(mat) if self._graphs is None else
+                        self._graphs.stage('paragraph_launch', 2, mat))
+                out = self.paragraph_launch(mono_dev, labels_dev, plan, hb,
+                                            wb)
                 launches.append((sel,) + tuple(out))
         self._count(paragraphs=len(plans))
         return launches
@@ -781,16 +832,19 @@ class OCRPipeline:
         wc = max(pick_char_width(plan['w_valid']) for _, plan in line_plans)
         B = self.LINE_DEVICE_BATCH
         launches = []
-        for start in range(0, len(line_plans), B):
-            sel = list(range(start, min(start + B, len(line_plans))))
-            mat = np.zeros((B, len(LINE_FIELDS)), np.int32)
-            mat[:, LINE_FIELDS.index('w_valid')] = CHAR_FIXED_WIDTH
-            for bi, ref in enumerate(sel):
-                slot, plan = line_plans[ref]
-                mat[bi] = [slot] + [plan[k] for k in LINE_FIELDS[1:]]
-            ids = self.line_stage(crops_dev, self._tensor(mat),
-                                  CHAR_INPUT_HEIGHT, wc)
-            launches.append((sel, ids))
+        # no graph capture meanwhile: it would count these launches
+        with (contextlib.nullcontext() if self._graphs is None
+              else self._graphs.lock):
+            for start in range(0, len(line_plans), B):
+                sel = list(range(start, min(start + B, len(line_plans))))
+                mat = np.zeros((B, len(LINE_FIELDS)), np.int32)
+                mat[:, LINE_FIELDS.index('w_valid')] = CHAR_FIXED_WIDTH
+                for bi, ref in enumerate(sel):
+                    slot, plan = line_plans[ref]
+                    mat[bi] = [slot] + [plan[k] for k in LINE_FIELDS[1:]]
+                ids = self.line_stage(crops_dev, self._tensor(mat),
+                                      CHAR_INPUT_HEIGHT, wc)
+                launches.append((sel, ids))
         return launches
 
     def _pad_stack(self, arr):
