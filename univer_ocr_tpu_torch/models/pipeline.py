@@ -961,9 +961,7 @@ class OCRPipeline:
             elif self.band_tables:
                 flat = self._plan_launch_from_tables(fut, bands_dev, hvs)
             else:
-                with self._track('pull_band_masks'):
-                    bands = self._wait(fut, 'bands')
-                flat = self._plan_from_bands(bands, range(len(sel)), hvs)
+                flat = self._plan_on_host([], range(len(sel)), fut, hvs)
             refs = []
             # with the fused tail, only flagged paragraphs have lines here
             if flat or direct is None:
@@ -1001,17 +999,24 @@ class OCRPipeline:
                            for wi, (_, _, _, (small, _)) in enumerate(wave))
         return futures
 
-    def _plan_from_bands(self, bands, slots, hvs):
-        """Line plans [(slot, plan)] of the paragraphs `slots` of a launch
-        from its pulled (B, HB, WB, 2) band masks, each within its valid
-        region (hvs[slot])."""
-        flat = []
+    def _plan_on_host(self, flat, slots, bands, hvs):
+        """A launch's line plans `flat` [(slot, plan)] merged, in slot
+        order, with those of its paragraphs `slots` planned on the host
+        from the launch's (B, HB, WB, 2) band masks, each within its valid
+        region (hvs[slot]).  `bands` is their pull in flight, or the
+        device tensor, pulled only when `slots` holds a paragraph."""
+        if not len(slots):
+            return flat
+        if isinstance(bands, torch.Tensor):
+            bands = self._pull(bands, 'bands')
+        with self._track('pull_band_masks'):
+            bands = self._wait(bands, 'bands')
         with self._track('host_line_plans'):
             for bi in slots:
                 hv, wv = hvs[bi]
                 flat.extend((int(bi), lp) for lp in self._plan_lines(
                     bands[bi, :hv, :wv, :] > 0))
-        return flat
+        return sorted(flat, key=lambda item: item[0])
 
     def _plan_fused_launch(self, n, buf, bands_dev, lines_dev, hvs):
         """One fused launch's host side: its n paragraphs' glyph payload
@@ -1042,13 +1047,7 @@ class OCRPipeline:
             # a plan row of zeros is no line
             flat = [(int(bi), dict(zip(fused_tail.PLAN_FIELDS, row.tolist())))
                     for bi in relaunch for row in rows[bi] if row[0] > 0]
-        if len(overflowed):
-            with self._track('pull_band_masks'):
-                bands = self._wait(self._pull(bands_dev, 'bands'), 'bands')
-            flat = sorted(flat + self._plan_from_bands(bands, overflowed,
-                                                       hvs),
-                          key=lambda item: item[0])
-        return flat, direct
+        return self._plan_on_host(flat, overflowed, bands_dev, hvs), direct
 
     def _plan_launch_from_tables(self, fut, bands_dev, hvs):
         """The tables mode's line plans for one paragraph launch: paired
@@ -1070,13 +1069,7 @@ class OCRPipeline:
                 flat.extend((bi, lp) for lp in lps)
         self._count(host_planned=len(overflowed),
                     table_of=len(overflowed))
-        if overflowed:
-            with self._track('pull_band_masks'):
-                bands = self._wait(self._pull(bands_dev, 'bands'), 'bands')
-            flat = sorted(flat + self._plan_from_bands(bands, overflowed,
-                                                       hvs),
-                          key=lambda item: item[0])
-        return flat
+        return self._plan_on_host(flat, overflowed, bands_dev, hvs)
 
     def _launch_texts(self, n, flat, id_futures, direct):
         """The line texts of one paragraph launch's n paragraphs: the

@@ -8,30 +8,35 @@ import torch
 EPS = 1e-8
 
 
+def _hw_sum(x):
+    """(B, H, W, C) -> (B, C) sums over H and W, accumulated in float64
+    and rounded to x's dtype.  A float32 sum's rounding on the CPU follows
+    torch's thread count, and the ratios below cancel (1 - 2 num / den):
+    two ulps of one sum moved a Monochrome loss by 3.7e-7 of itself."""
+    return torch.sum(x, dim=(1, 2), dtype=torch.float64).to(x.dtype)
+
+
 def segmentation_dice_2d(prediction, ground_truth):
     """Soft Dice over (B, H, W, C), summed over batch and channels:
     eps in the numerator, 2 * eps in the denominator,
     loss = sum(1 - 2 * num / den)."""
-    num = torch.sum(prediction * ground_truth, dim=(1, 2)) + EPS
-    den = (torch.sum(prediction, dim=(1, 2))
-           + torch.sum(ground_truth, dim=(1, 2)) + 2 * EPS)
+    num = _hw_sum(prediction * ground_truth) + EPS
+    den = _hw_sum(prediction) + _hw_sum(ground_truth) + 2 * EPS
     return torch.sum(1 - 2 * num / den)
 
 
 def segmentation_dice_2d_per_sample(prediction, ground_truth):
     """segmentation_dice_2d of each sample alone: (B,) losses, each
     summed over its channels (the JAX batched trainer's vmap of it)."""
-    num = torch.sum(prediction * ground_truth, dim=(1, 2)) + EPS
-    den = (torch.sum(prediction, dim=(1, 2))
-           + torch.sum(ground_truth, dim=(1, 2)) + 2 * EPS)
+    num = _hw_sum(prediction * ground_truth) + EPS
+    den = _hw_sum(prediction) + _hw_sum(ground_truth) + 2 * EPS
     return torch.sum(1 - 2 * num / den, dim=1)
 
 
 def segmentation_jaccard_2d(prediction, ground_truth):
     """Soft Jaccard (IoU) with the same eps placement."""
-    num = torch.sum(prediction * ground_truth, dim=(1, 2)) + EPS
-    den = (torch.sum(prediction, dim=(1, 2))
-           + torch.sum(ground_truth, dim=(1, 2)) - num + 2 * EPS)
+    num = _hw_sum(prediction * ground_truth) + EPS
+    den = _hw_sum(prediction) + _hw_sum(ground_truth) - num + 2 * EPS
     return torch.sum(1 - num / den)
 
 
