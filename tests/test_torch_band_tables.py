@@ -14,6 +14,7 @@ lines touch.  The kernel itself is held to this plain version on the card
 (`cuda` test below, and chip_smoke.py)."""
 
 import json
+import zlib
 
 import numpy as np
 import pytest
@@ -26,7 +27,8 @@ from univer_ocr_tpu_torch.models import band_tables as tbt
 from univer_ocr_tpu_torch.models.pipeline import OCRPipeline
 from univer_ocr_tpu_torch.ops.kernels.band_ccl import (FIELDS, MAX_TABLE,
                                                        band_ccl,
-                                                       band_ccl_reference)
+                                                       band_ccl_reference,
+                                                       tile_shape)
 from univer_ocr_tpu_torch.weights import DEFAULT_CHECKPOINT
 
 from test_torch_fixture import N_PAGES, PAGE_SHAPE, load_fixture
@@ -144,20 +146,133 @@ def test_band_ccl_checks_its_arguments():
     assert stats.shape == (1, 8, len(FIELDS)) and int(n_comp[0]) == 0
 
 
+# ---------------------------------------------------------------------------
+# Hard masks for the kernel's tiles, on every shape of the main path
+# ---------------------------------------------------------------------------
+
+#: both band channels of a launch of 16 and of 4 paragraphs at each menu
+#: bucket, a chunk's page labels, ragged shapes, and one wide enough for
+#: tiles side by side
+KERNEL_SHAPES = ([(2 * n, hb, wb) for hb, wb in ((128, 256), (256, 512),
+                                                  (512, 768))
+                  for n in (16, 4)]
+                 + [(32, 496, 736), (3, 37, 91), (40, 64, 64), (2, 40, 2100)])
+HARD_MASKS = ('serpentine', 'spanning', 'u_turn', 'stripes', 'empty_full',
+              'border_lines', 'ragged')
+#: at most this many pixels of a stack through the plain version on the
+#: CPU; a larger stack checks its first four images
+CPU_PIXELS = 1 << 21
+
+
+def _serpentine(H, W, period, vertical):
+    """Bars every `period` rows (columns), each joined to the next at
+    alternate ends: one component through every tile."""
+    if vertical:
+        return _serpentine(W, H, period, False).T.copy()
+    m = np.zeros((H, W), bool)
+    bars = list(range(0, H, period))
+    for k, y in enumerate(bars):
+        m[y] = True
+        if k + 1 < len(bars):
+            m[y:bars[k + 1], W - 1 if k % 2 == 0 else 0] = True
+    return m
+
+
+def hard_masks(kind, N, H, W):
+    """(masks (N, H, W) bool, h_valid, w_valid) of one kind of hard mask,
+    placed against the kernel's tiles (`tile_shape`): the images of a
+    stack cycle through the kind's variants."""
+    th, tw = tile_shape(N, H, W)
+    rs = np.random.RandomState(zlib.crc32(f'{kind} {N} {H} {W}'.encode()))
+    masks = np.zeros((N, H, W), bool)
+    hv, wv = np.full(N, H), np.full(N, W)
+    for i in range(N):
+        m = masks[i]
+        if kind == 'serpentine':
+            m[:] = _serpentine(H, W, 2 + i // 2 % 3, i % 2 == 1)
+        elif kind == 'spanning':
+            # a spine down one column and a tooth across every tile row
+            m[:, i * 7 % W] = True
+            m[i % th::th] = True
+        elif kind == 'u_turn':
+            # arms from the top that first meet on the last row; the arm
+            # that starts lower joins its root only through the last tile
+            a = i % max(1, W // 3)
+            b = W - 1 - a
+            m[i % 2:, a] = True
+            m[(i + 1) % 2:, b] = True
+            m[H - 1, a:b + 1] = True
+            if i % 3 == 2 and b - a > 4 and H > 3:
+                m[2:H - 2, a + 2] = m[3:H - 2, b - 2] = True
+                m[H - 3, a + 2:b - 1] = True
+        elif kind == 'stripes':
+            for y in range(i % 5, H - 2, 17):
+                m[y:y + 6, 3:W - 5] = True
+            m &= rs.rand(H, W) > 0.08
+            hv[i], wv[i] = rs.randint(H // 2, H + 1), rs.randint(W // 2, W + 1)
+        elif kind == 'empty_full':
+            m[:] = i % 2 == 1
+        elif kind == 'border_lines':
+            # one-pixel lines just above, just below or on both sides of
+            # each tile border, and dominoes across it
+            rows = ((-1,), (0,), (-1, 0), None)[i % 4]
+            for yb in range(th, H, th):
+                if rows is None:
+                    m[yb - 1:yb + 1, ::2] = True
+                else:
+                    m[[yb + r for r in rows]] = True
+            for xb in range(tw, W, tw):
+                m[:, xb - (i % 2 == 0)] = True
+        elif kind == 'ragged':
+            # random pixels, the valid region's edges inside a tile
+            m[:] = rs.rand(H, W) > rs.uniform(0.3, 0.7)
+            hv[i] = rs.randint(1, H + 1)
+            wv[i] = rs.randint(1, W + 1)
+            if hv[i] % th == 0 and 1 < hv[i] < H:
+                hv[i] -= 1
+            if wv[i] % tw == 0 and 1 < wv[i] < W:
+                wv[i] -= 1
+    return masks, hv, wv
+
+
+@pytest.mark.parametrize('shape', KERNEL_SHAPES, ids=str)
+@pytest.mark.parametrize('kind', HARD_MASKS)
+def test_band_ccl_hard_masks_like_scipy(kind, shape):
+    """The plain version that the kernel is held to, on the card test's
+    own hard masks: labels, counts and statistics as scipy's."""
+    masks, hv, wv = hard_masks(kind, *shape)
+    N, H, W = shape
+    if N * H * W > CPU_PIXELS:
+        masks, hv, wv = masks[:4], hv[:4], wv[:4]
+    for cap in (1, 48, MAX_TABLE):
+        stats, n_comp, labels = band_ccl_reference(_t(masks), _t(hv), _t(wv),
+                                                   cap, labels=True)
+        for i in range(len(masks)):
+            _assert_like_scipy(masks[i, :hv[i], :wv[i]], stats[i].numpy(),
+                               n_comp[i], labels[i, :hv[i], :wv[i]].numpy())
+            assert (labels[i, hv[i]:] == -1).all()
+            assert (labels[i, :, wv[i]:] == -1).all()
+
+
 @pytest.mark.cuda
-def test_band_ccl_kernel_matches_plain_version():
+@pytest.mark.parametrize('shape', KERNEL_SHAPES, ids=str)
+def test_band_ccl_kernel_matches_plain_version(shape):
+    """The kernel against the plain version (run on the card: integers,
+    so the same results), bit for bit, on every hard mask, with tables of
+    1, 48 and 256 rows and the labels on and off."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card (run on the H100: chip_smoke.py)')
-    rs = np.random.RandomState(0)
-    for N, H, W in [(32, 512, 768), (3, 37, 91), (8, 128, 256)]:
-        masks = _t(rs.rand(N, H, W) > rs.uniform(0.3, 0.7))
-        hv, wv = _t(rs.randint(1, H + 1, N)), _t(rs.randint(1, W + 1, N))
-        for cap in (48, MAX_TABLE):
+    for kind in HARD_MASKS:
+        masks, hv, wv = (_t(a).cuda() for a in hard_masks(kind, *shape))
+        for cap in (1, 48, MAX_TABLE):
             want = band_ccl_reference(masks, hv, wv, cap, labels=True)
-            got = band_ccl(masks.cuda(), hv.cuda(), wv.cuda(), cap,
-                           labels=True)
-            for g, w in zip(got, want):
-                assert torch.equal(g.cpu(), w)
+            got = band_ccl(masks, hv, wv, cap, labels=True)
+            for name, g, w in zip(('stats', 'n_comp', 'labels'), got, want):
+                assert torch.equal(g, w), (kind, cap, name)
+            got = band_ccl(masks, hv, wv, cap)
+            assert len(got) == 2
+            for name, g, w in zip(('stats', 'n_comp'), got, want):
+                assert torch.equal(g, w), (kind, cap, name, 'no labels')
 
 
 # ---------------------------------------------------------------------------

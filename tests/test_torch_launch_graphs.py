@@ -181,3 +181,45 @@ def test_single_page_chain_replays(pages, weights):
         assert Counter(pipeline.escalation_stats)['chain_fallback'] == 0
         pipeline._graphs = None
         assert got == [_run(pipeline, [page])[0] for page in pages[:3]]
+
+
+@pytest.mark.cuda
+def test_band_ccl_replays_equal_eager():
+    """`band_ccl` alone, captured at (32, 512, 768) with its labels, and
+    replayed twice on other masks and valid regions written into its
+    static input: each replay equals an eager call on the same input bit
+    for bit, so the kernels' sequence is fixed by the shape and nothing is
+    carried over in the scratch from one replay to the next.  The capture
+    counts one launch, as an eager call does."""
+    _need_card()
+    from univer_ocr_tpu_torch.ops.kernels.band_ccl import band_ccl
+    N, H, W = 32, 512, 768
+    rs = np.random.RandomState(0)
+
+    def draw(density):
+        m = torch.from_numpy(rs.rand(N, H, W) < density).to(torch.uint8)
+        hv = torch.from_numpy(rs.randint(H // 2, H + 1, N)).int()
+        wv = torch.from_numpy(rs.randint(W // 2, W + 1, N)).int()
+        return m.cuda(), hv.cuda(), wv.cuda()
+
+    static = draw(0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        band_ccl(*static, 48, labels=True)
+    torch.cuda.current_stream().wait_stream(side)
+    before = _build.LAUNCHES['band_ccl']
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = band_ccl(*static, 48, labels=True)
+    assert _build.LAUNCHES['band_ccl'] == before + 1
+    replays = []
+    for density in (0.6, 0.3):
+        for s, new in zip(static, draw(density)):
+            s.copy_(new)
+        graph.replay()
+        want = band_ccl(*(s.clone() for s in static), 48, labels=True)
+        for name, g, w in zip(('stats', 'n_comp', 'labels'), out, want):
+            assert torch.equal(g, w), (density, name)
+        replays.append([g.clone() for g in out])
+    assert not torch.equal(replays[0][1], replays[1][1])

@@ -11,7 +11,17 @@ launch with it, and the paragraph masks of a chunk.
 
 Bound on the H100: traffic.  The compulsory bytes are the masks, one
 byte a pixel, and the tables, 7 ints a component; the kernel also reads
-and writes a 4-byte label a pixel a few times (see the source).
+and writes a 4-byte label a pixel a few times, mostly in L2.  Latency
+bounds it in practice (unions and root searches are chains of dependent
+loads), so the kernel spreads each image over many blocks, with
+coalesced passes: union-find in shared memory over a tile, a merge
+across the tile borders, a compression that ranks the roots of each row
+segment, one scan an image over the segments' counts, and the
+statistics flushed from a shared table (see the source).  `tile_shape`
+picks the tiles from (N, H, W): full rows up to 1024 pixels wide, as
+many rows as 8192 pixels allow, fewer where that gives a launch fewer
+than TARGET_BLOCKS blocks.  One C call launches the five kernels, their
+grids fixed by the shape, so a CUDA graph replays them.
 
 A CPU tensor takes `band_ccl_reference`; a CUDA tensor launches the kernel
 or raises.
@@ -32,6 +42,23 @@ MAX_TABLE = 256
 #: launches of the kernel by the (N, H, W) of its input, counted where
 #: `_build.LAUNCHES` counts them
 SHAPE_LAUNCHES = collections.Counter()
+#: a tile's pixels at most: its labels fill 32 KB of a block's shared memory
+TILE_PIXELS = 8192
+#: the widest tile; wider images are cut into tiles side by side
+MAX_TILE_WIDTH = 1024
+#: blocks a launch aims at: four for each of the H100's 132 SMs
+TARGET_BLOCKS = 4 * 132
+#: the fewest rows of a tile cut short for TARGET_BLOCKS
+MIN_TILE_HEIGHT = 4
+
+
+def tile_shape(N, H, W):
+    """(tile_h, tile_w) of the kernel's tiles for N images of H x W."""
+    tiles_x = -(-W // MAX_TILE_WIDTH)
+    tile_w = -(-W // tiles_x)
+    per_image = -(-TARGET_BLOCKS // (N * tiles_x))
+    tile_h = max(MIN_TILE_HEIGHT, -(-H // per_image))
+    return min(tile_h, TILE_PIXELS // tile_w, H), tile_w
 
 
 def _valid_region(masks, h_valid, w_valid):
@@ -143,16 +170,20 @@ def band_ccl(masks, h_valid, w_valid, max_comp, labels=False):
     n_comp = torch.empty((N,), dtype=torch.int32, device=dev)
     if N == 0:
         return (stats, n_comp) + ((m.to(torch.int32),) if labels else ())
-    scratch = torch.empty((N, H, W), dtype=torch.int32, device=dev)
+    tile_h, tile_w = tile_shape(N, H, W)
+    tiles_x = -(-W // tile_w)
+    # the labels, then each row segment's count of roots
+    scratch = torch.empty((N * H * (W + tiles_x),), dtype=torch.int32,
+                          device=dev)
     out = (torch.full((N, H, W), -1, dtype=torch.int32, device=dev)
            if labels else None)
-    fn = _build.function('uocr_band_ccl', 'pppiiiippppp')
+    fn = _build.function('uocr_band_ccl', 'pppiiiiiippppp')
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(m.data_ptr(), hv.data_ptr(), wv.data_ptr(), N, H, W,
-                  max_comp, scratch.data_ptr(), stats.data_ptr(),
-                  n_comp.data_ptr(), None if out is None else out.data_ptr(),
-                  stream)
+                  max_comp, tile_h, tile_w, scratch.data_ptr(),
+                  stats.data_ptr(), n_comp.data_ptr(),
+                  None if out is None else out.data_ptr(), stream)
     _build.check(code, NAME)
     with _build.COUNT_LOCK:
         _build.LAUNCHES[NAME] += 1
